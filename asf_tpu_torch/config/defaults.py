@@ -1,0 +1,123 @@
+"""Default config tree of the PyTorch port.
+
+The nodes the eval slice reads, copied key-for-key from
+``asf_tpu/config/defaults.py`` so that YAMLs written for the JAX package
+merge unchanged, plus a ``GPU`` node: the counterparts of
+``TPU.COMPUTE_DTYPE`` and ``TPU.DSP_PRECISION``. There is no kernel on/off
+switch: on CUDA tensors the hand-written kernels always run, on CPU tensors
+their plain PyTorch versions do.
+"""
+
+from .cfg_node import CfgNode
+
+_C = CfgNode()
+
+# ---------------------------------------------------------------------------
+# Batch norm options
+# ---------------------------------------------------------------------------
+_C.BN = CfgNode()
+_C.BN.FREEZE = False
+_C.BN.USE_PRECISE_STATS = False
+_C.BN.NUM_BATCHES_PRECISE = 200
+_C.BN.WEIGHT_DECAY = 0.0
+# `batchnorm`, `sub_batchnorm`, `sync_batchnorm`; the port builds `batchnorm`.
+_C.BN.NORM_TYPE = "batchnorm"
+_C.BN.NUM_SPLITS = 1
+_C.BN.NUM_SYNC_DEVICES = 1
+
+# ---------------------------------------------------------------------------
+# ResNet options
+# ---------------------------------------------------------------------------
+_C.RESNET = CfgNode()
+_C.RESNET.TRANS_FUNC = "bottleneck_transform"
+_C.RESNET.NUM_GROUPS = 1
+_C.RESNET.WIDTH_PER_GROUP = 64
+_C.RESNET.INPLACE_RELU = True
+_C.RESNET.STRIDE_1X1 = False
+_C.RESNET.ZERO_INIT_FINAL_BN = False
+_C.RESNET.DEPTH = 50
+_C.RESNET.NUM_BLOCK_TEMP_KERNEL = [[3], [4], [6], [3]]
+_C.RESNET.FREQUENCY_STRIDES = [[1], [2], [2], [2]]
+_C.RESNET.FREQUENCY_DILATIONS = [[1], [1], [1], [1]]
+
+# ---------------------------------------------------------------------------
+# Model options
+# ---------------------------------------------------------------------------
+_C.MODEL = CfgNode()
+_C.MODEL.ARCH = "slowfast"
+_C.MODEL.CLIP_MODEL = "ViT-B/32"
+_C.MODEL.MODEL_NAME = "SlowFast"
+_C.MODEL.NUM_CLASSES = [400]
+_C.MODEL.GRU_HIDDEN_SIZE = 512
+_C.MODEL.GRU_NUM_LAYERS = 2
+_C.MODEL.VOCAB_FILE = ""
+_C.MODEL.ONLY_ACTION_RECOGNITION = False
+_C.MODEL.LOSS_FUNC = "cross_entropy"
+_C.MODEL.STATE_LOSS_FUNC = "masked_loss"
+_C.MODEL.SINGLE_PATHWAY_ARCH = ["slow", "fast"]
+_C.MODEL.MULTI_PATHWAY_ARCH = ["slowfast"]
+_C.MODEL.DROPOUT_RATE = 0.5
+_C.MODEL.DROPCONNECT_RATE = 0.0
+_C.MODEL.FC_INIT_STD = 0.01
+_C.MODEL.HEAD_ACT = "softmax"
+# Only values ending in ".csv" activate the state-class append
+# (models/builders._maybe_append_state_classes).
+_C.MODEL.PDDL_ATTRIBUTES = "softmax"
+
+# ---------------------------------------------------------------------------
+# SlowFast options
+# ---------------------------------------------------------------------------
+_C.SLOWFAST = CfgNode()
+_C.SLOWFAST.BETA_INV = 8
+_C.SLOWFAST.ALPHA = 8
+_C.SLOWFAST.FUSION_CONV_CHANNEL_RATIO = 2
+_C.SLOWFAST.FUSION_KERNEL_SZ = 5
+
+# ---------------------------------------------------------------------------
+# Data options
+# ---------------------------------------------------------------------------
+_C.DATA = CfgNode()
+_C.DATA.INPUT_CHANNEL_NUM = [1, 1]
+_C.DATA.MULTI_LABEL = False
+_C.DATA.ENSEMBLE_METHOD = "sum"
+_C.DATA.ONLY_SYMBOLIC_STATE = False
+
+# ---------------------------------------------------------------------------
+# Audio data options
+# ---------------------------------------------------------------------------
+_C.AUDIO_DATA = CfgNode()
+_C.AUDIO_DATA.SAMPLING_RATE = 24000
+_C.AUDIO_DATA.N_FFT = 2048
+_C.AUDIO_DATA.CLIP_SECS = 1.279
+_C.AUDIO_DATA.WINDOW_LENGTH = 10.0
+_C.AUDIO_DATA.HOP_LENGTH = 5.0
+_C.AUDIO_DATA.NUM_FRAMES = 256
+_C.AUDIO_DATA.NUM_FREQUENCIES = 128
+_C.AUDIO_DATA.SPECTROGRAM_OVERLAP = 1.0
+_C.AUDIO_DATA.MAX_NB_SPECTROGRAMS = 15
+
+# ---------------------------------------------------------------------------
+# GPU options of the port (counterparts of the JAX package's TPU node)
+# ---------------------------------------------------------------------------
+_C.GPU = CfgNode()
+# Compute dtype of the conv trunk ("bfloat16" or "float32"). Parameters and
+# BN statistics stay float32.
+_C.GPU.COMPUTE_DTYPE = "bfloat16"
+# Log-mel front end: "HIGHEST" runs the float32 kernel (librosa parity),
+# "BFLOAT16" the bf16-input kernel with float32 accumulation.
+_C.GPU.DSP_PRECISION = "HIGHEST"
+
+
+def _assert_and_infer_cfg(cfg: CfgNode) -> CfgNode:
+    """The checks of ``asf_tpu``'s ``_assert_and_infer_cfg`` on the nodes kept."""
+    if cfg.BN.USE_PRECISE_STATS:
+        assert cfg.BN.NUM_BATCHES_PRECISE >= 0
+    assert cfg.RESNET.NUM_GROUPS > 0
+    assert cfg.RESNET.WIDTH_PER_GROUP > 0
+    assert cfg.RESNET.WIDTH_PER_GROUP % cfg.RESNET.NUM_GROUPS == 0
+    return cfg
+
+
+def get_cfg() -> CfgNode:
+    """Get a validated copy of the default config."""
+    return _assert_and_infer_cfg(_C.clone())

@@ -1,0 +1,50 @@
+"""The input pipeline on the device: waveforms -> pathway tensors.
+
+Counterpart of the eval branch of ``asf_tpu/engine/steps.py:80-128``:
+int16 samples are scaled by 1/32768, the log-mel front end runs with
+``out_frames = NUM_FRAMES``, and the slow pathway gathers ``slow_indices``
+frames. Outputs are NCHW ``(B, 1, T, F)``, PyTorch's layout; the JAX
+package's are NHWC ``(B, T, F, 1)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..dsp.logmel import LogMelParams, log_mel_spectrogram
+from ..dsp.pathways import slow_indices
+
+
+def pack_pathways(cfg, spec: torch.Tensor) -> list[torch.Tensor]:
+    """(B, T, F) spectrogram -> [slow, fast] as (B, 1, T', F).
+
+    Only the two-pathway SlowFast is ported; single-pathway models come with
+    the slice that ports ``asf_tpu``'s ``ResNet``.
+    """
+    if cfg.MODEL.ARCH not in cfg.MODEL.MULTI_PATHWAY_ARCH:
+        raise NotImplementedError(f"model arch {cfg.MODEL.ARCH} is not ported yet")
+    idx = torch.from_numpy(slow_indices(spec.shape[1], cfg.SLOWFAST.ALPHA))
+    return [x.unsqueeze(1) for x in (spec.index_select(1, idx.to(spec.device)), spec)]
+
+
+class InputPipeline:
+    """``pipeline(waveform, n_valid) -> list of (B, 1, T, F) pathway tensors``."""
+
+    def __init__(self, cfg, device):
+        self.cfg = cfg
+        self.params = LogMelParams(cfg, device)
+
+    def __call__(self, waveform: torch.Tensor, n_valid: torch.Tensor) -> list[torch.Tensor]:
+        if waveform.dtype == torch.int16:
+            # 16-bit PCM shipped as raw samples; the same scale as the host
+            # conversion of the upstream wav loader.
+            waveform = waveform.float() / 32768.0
+        spec = log_mel_spectrogram(
+            waveform, self.params, n_valid_samples=n_valid,
+            out_frames=self.cfg.AUDIO_DATA.NUM_FRAMES,
+        )
+        return pack_pathways(self.cfg, spec)
+
+
+def make_input_pipeline(cfg, device) -> InputPipeline:
+    return InputPipeline(cfg, device)

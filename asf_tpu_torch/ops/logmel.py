@@ -1,0 +1,169 @@
+"""The log-mel kernels of the port: wrappers, plain versions, launch counts.
+
+Two hand-written CUDA kernels (``csrc/logmel.cu``) replace the two Pallas
+kernels of ``asf_tpu/ops/logmel_pallas.py`` that the main path runs:
+
+* ``logmel_f32`` replaces ``_partial_mel`` (``_kernel``, :264-310) and the
+  caller's sum over frequency tiles and log (:458-464): the float32 parity
+  path (``DSP_PRECISION="HIGHEST"``). It sums the frequency chunks in
+  registers and writes no ``(nk, rows, m)`` partial stack.
+* ``logmel_bf16`` replaces ``_resident_logmel`` (``_kernel_resident``,
+  :190-261): the production path (``"BFLOAT16"``). bf16 waveform, basis and
+  mel matrix, float32 accumulation, the magnitude rounded to bf16 before the
+  mel product (:221), the log inside the kernel.
+
+Both compute, for frame ``t`` of sample ``b`` (``x`` the un-padded
+waveform, zero outside ``[0, S)``)::
+
+    frame[t][c] = x[b, t*hop + off + c]                  c < ksup
+    out[b, t]   = log(|frame[t] @ (w_cos, w_sin)| @ mel + eps)[:n_mels]
+
+with ``off = s0a - n_fft//2``: the librosa centre padding and the
+window-support trim in one index, so neither the Pallas ``frame_waveform``
+pre-pass nor a frame tensor in device memory exists on the card.
+
+What bounds them on the H100 is operations, not bytes: ~1.31 MFLOP per
+frame at the flagship geometry against ~1.5 KB moved. The design notes are
+in the CUDA source. There is no single PyTorch call for this function
+(``torch.stft`` has no support trim and no mel or log), so the kernels have
+no library yardstick.
+
+A wrapper validates its arguments, then takes the plain version for CPU
+tensors and launches its kernel for CUDA tensors. Each launch adds one to
+the wrapper's ``launches`` count; nothing else does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+# The padded weight layout the kernels read (csrc/logmel.cu kChunk, kMels)
+# and ``LogMelParams`` builds: basis width a multiple of FREQ_CHUNK, mel
+# matrix MEL_WIDTH columns wide. Whether a support fits the kernel's shared
+# memory is decided by the launch, which returns the CUDA error.
+FREQ_CHUNK = 128
+MEL_WIDTH = 128
+
+
+def frames_of(x: torch.Tensor, ksup: int, hop: int, off: int, n_frames: int) -> torch.Tensor:
+    """(B, S) -> (B, n_frames, ksup) view with frame[t][c] = x[t*hop + off + c]."""
+    need = (n_frames - 1) * hop + ksup
+    left = max(0, -off)
+    x = x[:, max(0, off):]
+    x = F.pad(x, (left, max(0, need - left - x.shape[1])))[:, :need]
+    return x.unfold(1, ksup, hop)
+
+
+def _plain(wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps, round_mag):
+    frames = frames_of(wave.float(), w_cos.shape[0], hop, off, n_frames)
+    re = frames @ w_cos.float()
+    im = frames @ w_sin.float()
+    mag = torch.sqrt(re * re + im * im)
+    if round_mag:
+        mag = mag.to(torch.bfloat16).float()
+    return torch.log(mag @ mel_w.float() + eps)[..., :n_mels]
+
+
+def logmel_f32_plain(wave, w_cos, w_sin, mel_w, *, hop, off, n_frames, n_mels, eps=1e-6):
+    """Plain PyTorch version of ``logmel_f32`` (float32 products; TF32 must be off)."""
+    return _plain(wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps, False)
+
+
+def logmel_bf16_plain(wave, w_cos, w_sin, mel_w, *, hop, off, n_frames, n_mels, eps=1e-6):
+    """Plain PyTorch version of ``logmel_bf16``: float32 products of the
+    bf16 inputs, with the magnitude rounded to bf16 before the mel product."""
+    return _plain(wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps, True)
+
+
+def _check(wave, w_cos, w_sin, mel_w, dtype, hop, n_frames, n_mels):
+    for name, t in (("wave", wave), ("w_cos", w_cos), ("w_sin", w_sin), ("mel_w", mel_w)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != wave.device:
+            raise ValueError(f"{name} is on {t.device}, wave on {wave.device}")
+    if wave.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {wave.device}")
+    if wave.dim() != 2:
+        raise ValueError(f"wave must be (batch, samples), got {tuple(wave.shape)}")
+    ksup, kf = w_cos.shape
+    if tuple(w_sin.shape) != (ksup, kf):
+        raise ValueError(f"w_sin {tuple(w_sin.shape)} differs from w_cos {(ksup, kf)}")
+    if kf % FREQ_CHUNK or tuple(mel_w.shape) != (kf, MEL_WIDTH):
+        raise ValueError(
+            f"basis width {kf} must be a multiple of {FREQ_CHUNK} and mel_w "
+            f"({kf}, {MEL_WIDTH}); got mel_w {tuple(mel_w.shape)}"
+        )
+    if not 0 < n_mels <= MEL_WIDTH or n_frames < 1 or hop < 1:
+        raise ValueError(f"need 0 < n_mels <= {MEL_WIDTH}, n_frames >= 1 and hop >= 1")
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("logmel")
+    # every pointer and the stream as c_void_p: a bare int would be cut to 32 bits
+    args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    for fn in (lib.logmel_f32, lib.logmel_bf16):
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.logmel_error_string.argtypes = [ctypes.c_int]
+    lib.logmel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(symbol, wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps):
+    batch, n_samples = wave.shape
+    ksup, kf = w_cos.shape
+    out = torch.empty((batch, n_frames, n_mels), dtype=torch.float32, device=wave.device)
+    lib = _lib()
+    with torch.cuda.device(wave.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, symbol)(
+            wave.data_ptr(), w_cos.data_ptr(), w_sin.data_ptr(), mel_w.data_ptr(),
+            out.data_ptr(), batch, n_samples, n_frames, hop, off, ksup, kf, n_mels,
+            eps, stream,
+        )
+    if err:
+        raise RuntimeError(f"{symbol} launch failed: {lib.logmel_error_string(err).decode()}")
+    return out
+
+
+def logmel_f32(wave, w_cos, w_sin, mel_w, *, hop, off, n_frames, n_mels, eps=1e-6):
+    """(B, S) float32 waveform -> (B, n_frames, n_mels) float32 log-mel.
+
+    ``w_cos``/``w_sin`` are the (ksup, kf) support rows of the windowed DFT
+    basis, ``mel_w`` the (kf, 128) mel matrix, zero-padded.
+    """
+    _check(wave, w_cos, w_sin, mel_w, torch.float32, hop, n_frames, n_mels)
+    if wave.device.type == "cpu":
+        return logmel_f32_plain(
+            wave, w_cos, w_sin, mel_w, hop=hop, off=off, n_frames=n_frames,
+            n_mels=n_mels, eps=eps,
+        )
+    out = _launch("logmel_f32", wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps)
+    logmel_f32.launches += 1
+    return out
+
+
+def logmel_bf16(wave, w_cos, w_sin, mel_w, *, hop, off, n_frames, n_mels, eps=1e-6):
+    """The same function on a bf16 waveform, basis and mel matrix; float32 out."""
+    _check(wave, w_cos, w_sin, mel_w, torch.bfloat16, hop, n_frames, n_mels)
+    if wave.device.type == "cpu":
+        return logmel_bf16_plain(
+            wave, w_cos, w_sin, mel_w, hop=hop, off=off, n_frames=n_frames,
+            n_mels=n_mels, eps=eps,
+        )
+    out = _launch("logmel_bf16", wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps)
+    logmel_bf16.launches += 1
+    return out
+
+
+logmel_f32.launches = 0
+logmel_bf16.launches = 0
