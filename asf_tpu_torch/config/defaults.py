@@ -1,9 +1,9 @@
 """Default config tree of the PyTorch port.
 
-The nodes the eval slice reads, copied key-for-key from
+The nodes the eval and train slices read, copied key-for-key from
 ``asf_tpu/config/defaults.py`` so that YAMLs written for the JAX package
 merge unchanged, plus a ``GPU`` node: the counterparts of
-``TPU.COMPUTE_DTYPE`` and ``TPU.DSP_PRECISION``. There is no kernel on/off
+``TPU.COMPUTE_DTYPE``, ``TPU.DSP_PRECISION`` and ``TPU.SPEC_AUGMENT``. There is no kernel on/off
 switch: on CUDA tensors the hand-written kernels always run, on CPU tensors
 their plain PyTorch versions do.
 """
@@ -24,6 +24,13 @@ _C.BN.WEIGHT_DECAY = 0.0
 _C.BN.NORM_TYPE = "batchnorm"
 _C.BN.NUM_SPLITS = 1
 _C.BN.NUM_SYNC_DEVICES = 1
+
+# ---------------------------------------------------------------------------
+# Training options (the keys the train step reads)
+# ---------------------------------------------------------------------------
+_C.TRAIN = CfgNode()
+_C.TRAIN.DATASET = "vggsound"
+_C.TRAIN.BATCH_SIZE = 64
 
 # ---------------------------------------------------------------------------
 # ResNet options
@@ -97,6 +104,28 @@ _C.AUDIO_DATA.SPECTROGRAM_OVERLAP = 1.0
 _C.AUDIO_DATA.MAX_NB_SPECTROGRAMS = 15
 
 # ---------------------------------------------------------------------------
+# Optimizer options
+# ---------------------------------------------------------------------------
+_C.SOLVER = CfgNode()
+_C.SOLVER.BASE_LR = 0.1
+_C.SOLVER.LR_POLICY = "cosine"
+_C.SOLVER.COSINE_END_LR = 0.0
+_C.SOLVER.GAMMA = 0.1
+_C.SOLVER.STEP_SIZE = 1
+_C.SOLVER.STEPS = []
+_C.SOLVER.LRS = []
+_C.SOLVER.MAX_EPOCH = 300
+_C.SOLVER.MOMENTUM = 0.9
+_C.SOLVER.DAMPENING = 0.0
+_C.SOLVER.NESTEROV = True
+_C.SOLVER.WEIGHT_DECAY = 1e-4
+_C.SOLVER.WARMUP_FACTOR = 0.1
+_C.SOLVER.WARMUP_EPOCHS = 0.0
+_C.SOLVER.WARMUP_START_LR = 0.01
+_C.SOLVER.OPTIMIZING_METHOD = "sgd"
+_C.SOLVER.BASE_LR_SCALE_NUM_SHARDS = False
+
+# ---------------------------------------------------------------------------
 # GPU options of the port (counterparts of the JAX package's TPU node)
 # ---------------------------------------------------------------------------
 _C.GPU = CfgNode()
@@ -106,6 +135,9 @@ _C.GPU.COMPUTE_DTYPE = "bfloat16"
 # Log-mel front end: "HIGHEST" runs the float32 kernel (librosa parity),
 # "BFLOAT16" the bf16-input kernel with float32 accumulation.
 _C.GPU.DSP_PRECISION = "HIGHEST"
+# SpecAugment (time warp, 2 frequency and 2 time masks) on every training
+# spectrogram, as the reference does; False takes it out of the train step.
+_C.GPU.SPEC_AUGMENT = True
 
 
 def _assert_and_infer_cfg(cfg: CfgNode) -> CfgNode:

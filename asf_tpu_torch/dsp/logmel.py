@@ -6,7 +6,8 @@ Counterpart of ``asf_tpu/dsp/logmel.py:39-194``. The whole chain
 
 is one launch of a hand-written kernel (``asf_tpu_torch/ops/logmel.py``),
 float32 for ``GPU.DSP_PRECISION="HIGHEST"`` and bf16 inputs with float32
-accumulation for ``"BFLOAT16"``. Then the per-record edge replication of
+accumulation for ``"BFLOAT16"``; a bf16 front end with a wide window
+support runs K3's counterpart, chosen by ``PallasLogMel``'s rule. Then the per-record edge replication of
 the upstream loader (np.pad(..., 'edge') to NUM_FRAMES) and the pad or trim
 to the output frame count run as plain tensor code.
 """
@@ -66,6 +67,16 @@ class LogMelParams:
             raise ValueError(f"unknown GPU.DSP_PRECISION {cfg.GPU.DSP_PRECISION!r}")
         self.fast = prec != "HIGHEST"
         self.dtype = torch.bfloat16 if self.fast else torch.float32
+        # K3's rule (asf_tpu/ops/logmel_pallas.py:389-398): a bf16 front end
+        # with hop <= 128 whose aligned support is wider than 512 taps and
+        # whose support blocks, padded to 128 lanes, cost at most 1.55x the
+        # taps; ``kernel`` adds the frame-count limit (:430).
+        j_lo, j_hi = s0 // self.hop, (s1 - 1) // self.hop
+        self.j_eff = j_hi - j_lo + 1
+        self.hopblock = (
+            self.fast and self.hop <= 128 and self.ksup > 512
+            and (self.j_eff * 128) / self.ksup <= 1.55
+        )
 
         kf = _round_up(self.n_freqs, ops.FREQ_CHUNK)
         m = _round_up(self.n_mels, ops.MEL_WIDTH)
@@ -79,6 +90,14 @@ class LogMelParams:
         self.w_cos = torch.from_numpy(wc).to(device=device, dtype=self.dtype)
         self.w_sin = torch.from_numpy(ws).to(device=device, dtype=self.dtype)
         self.mel_w = torch.from_numpy(melp).to(device=device, dtype=self.dtype)
+
+    def kernel(self, n_frames: int):
+        """The kernel wrapper for ``n_frames`` frames: K1's, K2's or K3's counterpart."""
+        if not self.fast:
+            return ops.logmel_f32
+        if self.hopblock and _round_up(n_frames, 8) <= 512:
+            return ops.logmel_bf16_wide
+        return ops.logmel_bf16
 
     def geometry(self, n_samples: int) -> dict:
         """Keyword arguments of the kernels for a waveform of ``n_samples``."""
@@ -94,7 +113,7 @@ def log_mel_frames(wave: torch.Tensor, params: LogMelParams, eps: float = 1e-6) 
     The waveform is rounded to the kernel's type before framing, as
     asf_tpu does (framing only copies samples, so the frames are the same).
     """
-    kernel = ops.logmel_bf16 if params.fast else ops.logmel_f32
+    kernel = params.kernel(num_frames_for(wave.shape[1], params.hop))
     return kernel(
         wave.to(params.dtype).contiguous(), params.w_cos, params.w_sin, params.mel_w,
         eps=eps, **params.geometry(wave.shape[1]),

@@ -1,18 +1,25 @@
 """The input pipeline on the device: waveforms -> pathway tensors.
 
-Counterpart of the eval branch of ``asf_tpu/engine/steps.py:80-128``:
-int16 samples are scaled by 1/32768, the log-mel front end runs with
-``out_frames = NUM_FRAMES``, and the slow pathway gathers ``slow_indices``
-frames. Outputs are NCHW ``(B, 1, T, F)``, PyTorch's layout; the JAX
-package's are NHWC ``(B, T, F, 1)``.
+Counterpart of ``asf_tpu/engine/steps.py:80-128``: int16 samples are scaled
+by 1/32768, the log-mel front end runs with ``out_frames = NUM_FRAMES``, in
+training SpecAugment runs on the edge-padded float32 spectrogram
+(``GPU.SPEC_AUGMENT``), and the slow pathway gathers ``slow_indices`` frames.
+Outputs are NCHW ``(B, 1, T, F)``, PyTorch's layout; the JAX package's are
+NHWC ``(B, T, F, 1)``.
+
+The pipeline runs under ``torch.no_grad()``: no gradient flows into the
+waveform in the JAX package, and the log-mel kernels have no backward.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from ..dsp.logmel import LogMelParams, log_mel_spectrogram
 from ..dsp.pathways import slow_indices
+from ..dsp.specaugment import spec_augment
 
 
 def pack_pathways(cfg, spec: torch.Tensor) -> list[torch.Tensor]:
@@ -28,13 +35,21 @@ def pack_pathways(cfg, spec: torch.Tensor) -> list[torch.Tensor]:
 
 
 class InputPipeline:
-    """``pipeline(waveform, n_valid) -> list of (B, 1, T, F) pathway tensors``."""
+    """``pipeline(waveform, n_valid[, generator, train]) -> list of (B, 1, T, F)``.
+
+    With ``train=True`` and ``GPU.SPEC_AUGMENT``, SpecAugment draws from
+    ``generator`` (a ``torch.Generator`` on the waveform's device).
+    """
 
     def __init__(self, cfg, device):
         self.cfg = cfg
         self.params = LogMelParams(cfg, device)
+        self.augment = bool(cfg.GPU.SPEC_AUGMENT)
 
-    def __call__(self, waveform: torch.Tensor, n_valid: torch.Tensor) -> list[torch.Tensor]:
+    @torch.no_grad()
+    def __call__(self, waveform: torch.Tensor, n_valid: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 train: bool = False) -> list[torch.Tensor]:
         if waveform.dtype == torch.int16:
             # 16-bit PCM shipped as raw samples; the same scale as the host
             # conversion of the upstream wav loader.
@@ -43,6 +58,10 @@ class InputPipeline:
             waveform, self.params, n_valid_samples=n_valid,
             out_frames=self.cfg.AUDIO_DATA.NUM_FRAMES,
         )
+        if train and self.augment:
+            if generator is None:
+                raise ValueError("SpecAugment needs a generator in training")
+            spec = spec_augment(spec, generator)
         return pack_pathways(self.cfg, spec)
 
 

@@ -1,0 +1,145 @@
+"""The train step: waveforms -> loss -> gradients -> optimizer update, on the device.
+
+Counterparts of ``asf_tpu/engine/steps.py``: ``make_loss_fn`` (:146-184),
+``make_device_metrics`` (:202-236), ``_make_step_core``/``make_train_step``
+(:279-351) and ``init_state`` (:505-531). The single-task and verb/noun
+branches are ported; the state head's come with that head. The JAX
+package's scanned K-step dispatch (:354-416) exists for XLA dispatch costs
+and is not ported; its ``WANDB`` watch histograms (:315-335) come with the
+observers.
+
+One step is: the input pipeline with SpecAugment, the train-mode forward
+(BN running statistics update here), the loss, ``backward``, the LR written
+into the optimizer, the optimizer step, then ``grad_norm`` and
+``param_norm`` (over every parameter, BN's included, the latter after the
+update) and ``state.step + 1``. Where the JAX step takes the state and
+returns a new one (donating the old), this step updates ``state.model``,
+``state.optimizer`` and ``state.step`` in place and returns ``(parts,
+stats)``: loss parts and top-k statistics as 0-d tensors on the device, so
+that the step never waits for the card.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from ..models import losses as losses_mod
+from . import metrics as metrics_mod
+from .optimizer import construct_optimizer, set_lr
+from .pipeline import make_input_pipeline
+
+
+def is_multitask(cfg) -> bool:
+    return len(cfg.MODEL.NUM_CLASSES) > 1
+
+
+def has_state_head(cfg) -> bool:
+    return is_multitask(cfg) and not cfg.MODEL.ONLY_ACTION_RECOGNITION
+
+
+def make_loss_fn(cfg):
+    """``compute(preds, labels) -> (total_loss, dict of components)``."""
+    if has_state_head(cfg):
+        raise NotImplementedError("the state head's loss is not ported yet")
+    loss_fun = losses_mod.get_loss_func(cfg.MODEL.LOSS_FUNC)
+    multitask = is_multitask(cfg)
+
+    def compute(preds, labels):
+        if not multitask:
+            key = "class_id" if "class_id" in labels else "verb"
+            loss = loss_fun(preds, labels[key])
+            return loss, {"loss": loss}
+        loss_verb = loss_fun(preds[0], labels["verb"])
+        loss_noun = loss_fun(preds[1], labels["noun"])
+        total = (loss_verb + loss_noun) / 2.0
+        return total, {"loss": total, "verb_loss": loss_verb, "noun_loss": loss_noun}
+
+    return compute
+
+
+def make_device_metrics(cfg):
+    """Per-batch train accuracies on the step's predictions, left on the device."""
+    if has_state_head(cfg):
+        raise NotImplementedError("the state head's metrics are not ported yet")
+    multitask = is_multitask(cfg)
+
+    def compute(preds, labels):
+        if multitask:
+            x_v, x_n = preds[0], preds[1]
+            v1, v5 = metrics_mod.topk_accuracies(x_v, labels["verb"], (1, 5))
+            n1, n5 = metrics_mod.topk_accuracies(x_n, labels["noun"], (1, 5))
+            a1, a5 = metrics_mod.multitask_topk_accuracies(
+                (x_v, x_n), (labels["verb"], labels["noun"]), (1, 5)
+            )
+            return {
+                "verb_top1": v1, "verb_top5": v5,
+                "noun_top1": n1, "noun_top5": n5,
+                "action_top1": a1, "action_top5": a5,
+            }
+        key = "class_id" if "class_id" in labels else "verb"
+        k1, k5 = metrics_mod.topk_accuracies(preds, labels[key], (1, 5))
+        return {"top1_err": 100.0 - k1, "top5_err": 100.0 - k5}
+
+    return compute
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """``optax.global_norm``: the L2 norm of all the tensors together."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+
+
+@dataclass
+class TrainState:
+    """What the step updates in place: the model (parameters and BN
+    statistics), the optimizer, SpecAugment's generator and the step count."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    generator: torch.Generator
+    step: int = 0
+
+
+def init_state(cfg, model: nn.Module) -> TrainState:
+    """The optimizer of ``cfg`` over ``model``, and a SpecAugment generator
+    seeded with 0 on the model's device (reseed ``state.generator`` for
+    other draws)."""
+    device = next(model.parameters()).device
+    return TrainState(model=model, optimizer=construct_optimizer(cfg, model),
+                      generator=torch.Generator(device=device).manual_seed(0))
+
+
+def make_train_step(cfg, device):
+    """``train_step(state, batch, lr) -> (parts, stats)``.
+
+    ``batch`` holds ``waveform`` (B, S) float32 or int16, ``n_valid`` (B,)
+    and ``labels`` (``class_id``, or ``verb`` and ``noun``) on ``device``.
+    The model, optimizer and step count in ``state`` are updated in place.
+    """
+    pipeline = make_input_pipeline(cfg, device)
+    loss_fn = make_loss_fn(cfg)
+    device_metrics = make_device_metrics(cfg)
+
+    def train_step(state: TrainState, batch: dict, lr: float):
+        model, optimizer = state.model, state.optimizer
+        model.train()
+        paths = pipeline(batch["waveform"], batch["n_valid"], state.generator, train=True)
+        preds = model(paths)
+        loss, parts = loss_fn(preds, batch["labels"])
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        set_lr(optimizer, lr)
+        optimizer.step()
+        params = [p for p in model.parameters() if p.grad is not None]
+        with torch.no_grad():
+            parts = {k: v.detach() for k, v in parts.items()}
+            parts["grad_norm"] = global_norm(p.grad for p in params)
+            parts["param_norm"] = global_norm(model.parameters())
+            stats = device_metrics(preds, batch["labels"])
+        state.step += 1
+        return parts, stats
+
+    train_step.pipeline = pipeline
+    return train_step

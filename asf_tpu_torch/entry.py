@@ -1,8 +1,11 @@
-"""Entry point of the port: the flagship eval forward, waveform -> probabilities.
+"""Entry points of the port: the flagship eval forward and train step.
 
-Counterpart of ``__graft_entry__.py:17-65``: the VGG-Sound ``AudioSlowFast``
-(SlowFast-R50, 309 classes, bf16 trunk) behind the log-mel front end,
-in eval mode (softmax, then the mean over positions).
+``entry`` is the counterpart of ``__graft_entry__.py:17-65``: the VGG-Sound
+``AudioSlowFast`` (SlowFast-R50, 309 classes, bf16 trunk) behind the log-mel
+front end, in eval mode (softmax, then the mean over positions).
+``train_entry`` is the counterpart of ``scripts/bench_train.py:20-55`` and
+``__graft_entry__.py:_run_variant`` (:144-157): the same model's train step,
+waveform -> loss -> gradients -> SGD update, with SpecAugment on.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import torch
 
 from .config import get_cfg
 from .engine.pipeline import make_input_pipeline
+from .engine.steps import init_state, make_train_step
 from .models import build_model
 from .utils.torch_setup import disable_tf32, resolve_device
 
@@ -26,6 +30,21 @@ def flagship_cfg():
     cfg.RESNET.FREQUENCY_STRIDES = [[1, 1], [2, 2], [2, 2], [2, 2]]
     cfg.RESNET.FREQUENCY_DILATIONS = [[1, 1], [1, 1], [1, 1], [1, 1]]
     cfg.GPU.COMPUTE_DTYPE = "bfloat16"
+    return cfg
+
+
+def wide_window(cfg):
+    """Sets the wide-window geometry on ``cfg`` and returns it.
+
+    ``win_length = n_fft`` (librosa's default) with an effective hop of 120
+    samples through the reference's ``hop = win - hop`` rule. At the
+    flagship's 24 kHz and n_fft 2048 the aligned support is 2048 taps and the
+    bf16 front end takes K3's kernel; every other shape stays as it is.
+    """
+    sr_khz = cfg.AUDIO_DATA.SAMPLING_RATE / 1e3
+    n_fft = cfg.AUDIO_DATA.N_FFT
+    cfg.AUDIO_DATA.WINDOW_LENGTH = n_fft / sr_khz
+    cfg.AUDIO_DATA.HOP_LENGTH = (n_fft - 120) / sr_khz
     return cfg
 
 
@@ -64,3 +83,37 @@ def entry(batch: int = 8, dsp_precision: str = "HIGHEST", device=None, cfg=None)
 
     fn.pipeline = pipeline
     return fn, (model, wave, n_valid)
+
+
+def train_entry(batch: int = 64, dsp_precision: str = "BFLOAT16", device=None, cfg=None):
+    """Returns ``(step, (state, example))`` with ``step(state, example, lr) -> (parts, stats)``.
+
+    ``state`` holds the ``AudioSlowFast`` of ``cfg`` (default:
+    ``flagship_cfg()``, ``TRAIN.BATCH_SIZE = batch``) with weights drawn from
+    ``torch.Generator().manual_seed(0)``, its optimizer (nesterov SGD by
+    default) and a SpecAugment generator seeded with 0. ``example`` is a
+    seeded batch: ``waveform`` (batch, clip_samples) float32, ``n_valid`` and
+    ``labels["class_id"]``. The step updates ``state`` in place; the LR comes
+    from the caller (``utils/lr_policy.get_lr_at_epoch``). Runs on the
+    current CUDA device unless ``device="cpu"``; raises when CUDA is absent
+    and no device was given.
+    """
+    device = resolve_device(device)
+    disable_tf32()
+    cfg = (cfg if cfg is not None else flagship_cfg()).clone()
+    cfg.GPU.DSP_PRECISION = dsp_precision
+    cfg.TRAIN.BATCH_SIZE = batch
+    model = build_model(cfg, device, torch.Generator().manual_seed(0))
+    state = init_state(cfg, model)
+    step = make_train_step(cfg, device)
+
+    s = clip_samples(cfg)
+    rng = np.random.default_rng(0)
+    example = {
+        "waveform": torch.from_numpy(
+            rng.standard_normal((batch, s)).astype(np.float32) * 0.1).to(device),
+        "n_valid": torch.full((batch,), s, dtype=torch.int32, device=device),
+        "labels": {"class_id": torch.from_numpy(
+            rng.integers(0, cfg.MODEL.NUM_CLASSES[0], batch)).to(device)},
+    }
+    return step, (state, example)

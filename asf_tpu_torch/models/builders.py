@@ -101,7 +101,8 @@ class AudioSlowFast(nn.Module):
             norm=norm,
             dtype=dtype,
         )
-        self.s1_fuse = FuseFastToSlow(w // beta, ratio, fuse_k, alpha, norm, dtype)
+        self.s1_fuse = FuseFastToSlow(w // beta, ratio, fuse_k, alpha, norm, dtype,
+                                      bn_freeze_exempt=True)
         widths = [
             (w, w * 4, dim_inner, d2),
             (w * 4, w * 8, dim_inner * 2, d3),

@@ -36,13 +36,16 @@ class Conv2d(nn.Conv2d):
 
 
 class ResNetBasicStem(nn.Module):
-    """Conv([t,7], stride [2,2]) + BN + ReLU + MaxPool(3x3, stride 2, pad 1)."""
+    """Conv([t,7], stride [2,2]) + BN + ReLU + MaxPool(3x3, stride 2, pad 1).
+
+    The stem BN is exempt from ``BN.FREEZE`` (``asf_tpu/models/layers.py:165-168``).
+    """
 
     def __init__(self, dim_in, dim_out, kernel, stride, padding, norm: Callable,
                  dtype=torch.float32):
         super().__init__()
         self.conv = Conv2d(dim_in, dim_out, kernel, stride, padding, dtype=dtype)
-        self.bn = norm(dim_out)
+        self.bn = norm(dim_out, freeze_exempt=True)
         self.pool = nn.MaxPool2d(3, 2, 1)
 
     def forward(self, x):
@@ -67,15 +70,19 @@ class AudioModelStem(nn.Module):
 
 
 class FuseFastToSlow(nn.Module):
-    """Conv([k,1], stride [alpha,1]) on Fast + BN + ReLU, concatenated onto Slow."""
+    """Conv([k,1], stride [alpha,1]) on Fast + BN + ReLU, concatenated onto Slow.
+
+    ``bn_freeze_exempt`` keeps the BN's statistics live under ``BN.FREEZE``
+    (s1's fuse only, ``asf_tpu/models/builders.py:131``).
+    """
 
     def __init__(self, dim_in, fusion_conv_channel_ratio, fusion_kernel, alpha,
-                 norm: Callable, dtype=torch.float32):
+                 norm: Callable, dtype=torch.float32, bn_freeze_exempt=False):
         super().__init__()
         dim_out = dim_in * fusion_conv_channel_ratio
         self.conv_f2s = Conv2d(dim_in, dim_out, (fusion_kernel, 1), (alpha, 1),
                                (fusion_kernel // 2, 0), dtype=dtype)
-        self.bn = norm(dim_out)
+        self.bn = norm(dim_out, freeze_exempt=bn_freeze_exempt)
 
     def forward(self, xs):
         x_s, x_f = xs

@@ -1,7 +1,7 @@
 """The log-mel kernels of the port: wrappers, plain versions, launch counts.
 
-Two hand-written CUDA kernels (``csrc/logmel.cu``) replace the two Pallas
-kernels of ``asf_tpu/ops/logmel_pallas.py`` that the main path runs:
+Three hand-written CUDA kernels (``csrc/logmel.cu``) replace the three
+Pallas kernels of ``asf_tpu/ops/logmel_pallas.py``:
 
 * ``logmel_f32`` replaces ``_partial_mel`` (``_kernel``, :264-310) and the
   caller's sum over frequency tiles and log (:458-464): the float32 parity
@@ -11,8 +11,13 @@ kernels of ``asf_tpu/ops/logmel_pallas.py`` that the main path runs:
   :190-261): the production path (``"BFLOAT16"``). bf16 waveform, basis and
   mel matrix, float32 accumulation, the magnitude rounded to bf16 before the
   mel product (:221), the log inside the kernel.
+* ``logmel_bf16_wide`` replaces ``_hopblock_logmel`` (``_kernel_hopblock``,
+  :99-187): the same bf16 function, chosen for wide window supports
+  (``dsp/logmel.py:LogMelParams.hopblock``). It stages the waveform span
+  under a tile of frames instead of a frame tile; K3's hop-blocked layout,
+  a TPU artefact, does not exist here.
 
-Both compute, for frame ``t`` of sample ``b`` (``x`` the un-padded
+All three compute, for frame ``t`` of sample ``b`` (``x`` the un-padded
 waveform, zero outside ``[0, S)``)::
 
     frame[t][c] = x[b, t*hop + off + c]                  c < ksup
@@ -23,14 +28,16 @@ window-support trim in one index, so neither the Pallas ``frame_waveform``
 pre-pass nor a frame tensor in device memory exists on the card.
 
 What bounds them on the H100 is operations, not bytes: ~1.31 MFLOP per
-frame at the flagship geometry against ~1.5 KB moved. The design notes are
+frame at the flagship geometry (8.66 MFLOP at a 2048-tap support) against
+~1.5 KB moved. The design notes are
 in the CUDA source. There is no single PyTorch call for this function
 (``torch.stft`` has no support trim and no mel or log), so the kernels have
 no library yardstick.
 
 A wrapper validates its arguments, then takes the plain version for CPU
 tensors and launches its kernel for CUDA tensors. Each launch adds one to
-the wrapper's ``launches`` count; nothing else does.
+the wrapper's ``launches`` count; nothing else does. No kernel has a
+backward (nor have K1-K3): a wrapper raises on an input that requires grad.
 """
 
 from __future__ import annotations
@@ -81,6 +88,10 @@ def logmel_bf16_plain(wave, w_cos, w_sin, mel_w, *, hop, off, n_frames, n_mels, 
     return _plain(wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps, True)
 
 
+# K3 computes K2's function: one plain version serves both.
+logmel_bf16_wide_plain = logmel_bf16_plain
+
+
 def _check(wave, w_cos, w_sin, mel_w, dtype, hop, n_frames, n_mels):
     for name, t in (("wave", wave), ("w_cos", w_cos), ("w_sin", w_sin), ("mel_w", mel_w)):
         if t.dtype != dtype:
@@ -89,6 +100,10 @@ def _check(wave, w_cos, w_sin, mel_w, dtype, hop, n_frames, n_mels):
             raise ValueError(f"{name} must be contiguous")
         if t.device != wave.device:
             raise ValueError(f"{name} is on {t.device}, wave on {wave.device}")
+        if t.requires_grad:
+            raise ValueError(f"{name} requires grad: the log-mel kernels have no backward")
+        if name != "wave" and t.device.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")  # vector loads of weight rows
     if wave.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {wave.device}")
     if wave.dim() != 2:
@@ -110,7 +125,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("logmel")
     # every pointer and the stream as c_void_p: a bare int would be cut to 32 bits
     args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-    for fn in (lib.logmel_f32, lib.logmel_bf16):
+    for fn in (lib.logmel_f32, lib.logmel_bf16, lib.logmel_bf16_wide):
         fn.argtypes = args
         fn.restype = ctypes.c_int
     lib.logmel_error_string.argtypes = [ctypes.c_int]
@@ -135,35 +150,31 @@ def _launch(symbol, wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps):
     return out
 
 
-def logmel_f32(wave, w_cos, w_sin, mel_w, *, hop, off, n_frames, n_mels, eps=1e-6):
-    """(B, S) float32 waveform -> (B, n_frames, n_mels) float32 log-mel.
+def _wrapper(symbol, dtype, plain, doc):
+    """The wrapper of kernel ``symbol``: checks its arguments, takes ``plain``
+    for CPU tensors, launches the kernel for CUDA tensors and counts it."""
 
-    ``w_cos``/``w_sin`` are the (ksup, kf) support rows of the windowed DFT
-    basis, ``mel_w`` the (kf, 128) mel matrix, zero-padded.
-    """
-    _check(wave, w_cos, w_sin, mel_w, torch.float32, hop, n_frames, n_mels)
-    if wave.device.type == "cpu":
-        return logmel_f32_plain(
-            wave, w_cos, w_sin, mel_w, hop=hop, off=off, n_frames=n_frames,
-            n_mels=n_mels, eps=eps,
-        )
-    out = _launch("logmel_f32", wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps)
-    logmel_f32.launches += 1
-    return out
+    def wrapper(wave, w_cos, w_sin, mel_w, *, hop, off, n_frames, n_mels, eps=1e-6):
+        _check(wave, w_cos, w_sin, mel_w, dtype, hop, n_frames, n_mels)
+        if wave.device.type == "cpu":
+            return plain(wave, w_cos, w_sin, mel_w, hop=hop, off=off, n_frames=n_frames,
+                         n_mels=n_mels, eps=eps)
+        out = _launch(symbol, wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps)
+        wrapper.launches += 1
+        return out
 
-
-def logmel_bf16(wave, w_cos, w_sin, mel_w, *, hop, off, n_frames, n_mels, eps=1e-6):
-    """The same function on a bf16 waveform, basis and mel matrix; float32 out."""
-    _check(wave, w_cos, w_sin, mel_w, torch.bfloat16, hop, n_frames, n_mels)
-    if wave.device.type == "cpu":
-        return logmel_bf16_plain(
-            wave, w_cos, w_sin, mel_w, hop=hop, off=off, n_frames=n_frames,
-            n_mels=n_mels, eps=eps,
-        )
-    out = _launch("logmel_bf16", wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps)
-    logmel_bf16.launches += 1
-    return out
+    wrapper.__name__ = wrapper.__qualname__ = symbol
+    wrapper.__doc__ = doc
+    wrapper.launches = 0
+    return wrapper
 
 
-logmel_f32.launches = 0
-logmel_bf16.launches = 0
+logmel_f32 = _wrapper("logmel_f32", torch.float32, logmel_f32_plain, """\
+(B, S) float32 waveform -> (B, n_frames, n_mels) float32 log-mel.
+
+``w_cos``/``w_sin`` are the (ksup, kf) support rows of the windowed DFT
+basis, ``mel_w`` the (kf, 128) mel matrix, zero-padded.""")
+logmel_bf16 = _wrapper("logmel_bf16", torch.bfloat16, logmel_bf16_plain,
+                       "The same function on a bf16 waveform, basis and mel matrix; float32 out.")
+logmel_bf16_wide = _wrapper("logmel_bf16_wide", torch.bfloat16, logmel_bf16_wide_plain,
+                            "``logmel_bf16``'s function by K3's kernel, for wide window supports.")

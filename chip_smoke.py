@@ -3,29 +3,44 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Four phases, each of which raises on a
+Run from the root of a checkout. Five phases, each of which raises on a
 failed check (the script then exits non-zero and prints no result):
 
 1. Device and build: needs a CUDA device; prints the card's name and power
    limit as ``nvidia-smi`` gives them, builds the CUDA kernels from
    ``asf_tpu_torch/csrc`` with ``nvcc`` and prints the build time.
 2. Kernels: each log-mel kernel against its plain PyTorch version at the
-   flagship geometry (24 kHz, n_fft 2048, 256 frames, 128 mels), batch 8 and
-   128, the last record short (n_valid = S/3). Median times over CUDA-event
-   timed launches, and the bound: the larger of the operations over the
-   card's peak rate for their type and the bytes over its memory rate.
-3. Slice: the port's entry point serves 4 batches of 8 clips with the
+   shapes the main paths give it, the last record short (n_valid = S/3):
+   the flagship geometry (24 kHz, n_fft 2048, win 240: a 256-tap support,
+   256 frames, 128 mels) for ``logmel_f32`` and ``logmel_bf16``, and the
+   wide-window geometry (win 2048, effective hop 120: a 2048-tap support)
+   for ``logmel_bf16_wide`` and for the other two at batch 8. Median times
+   over CUDA-event timed launches, and the bound: the larger of the
+   operations over the card's peak rate for their type and the bytes over
+   its memory rate.
+3. Eval slice: the port's ``entry`` serves 4 batches of 8 clips with the
    float32 front end and 3 batches of 128 with the bf16 one through the
    VGG-Sound SlowFast-R50 at full width and depth (weights from a seed).
    The launch counts are zeroed just before and read just after; the
    probabilities must be finite rows that sum to 1 and agree with the same
    model behind the plain front end. Then clips/s at batch 128.
-4. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+4. Train slice: ``train_entry(batch=64)`` trains the same SlowFast-R50 at
+   full width and depth (bf16 trunk and front end, SpecAugment on, nesterov
+   SGD with the cosine LR): 5 steps at the flagship geometry (``logmel_bf16``)
+   and 3 at the wide-window one (``logmel_bf16_wide``), the launch counts
+   zeroed before and read after each. Losses and gradient norms must be
+   finite and positive, every parameter and BN statistic must move, and the
+   optimizer must hold the policy's LR. One step from a copy of each state,
+   SpecAugment off, must give the loss of the same step with the plain
+   front end. Then ms per step, clips/s and peak memory at batch 64.
+5. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
+import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -48,13 +63,35 @@ PEAKS = {
 REPLACES = {
     "logmel_f32": "asf_tpu/ops/logmel_pallas.py:284",  # _partial_mel (+ sum and log, :458-464)
     "logmel_bf16": "asf_tpu/ops/logmel_pallas.py:232",  # _resident_logmel
+    "logmel_bf16_wide": "asf_tpu/ops/logmel_pallas.py:156",  # _hopblock_logmel
 }
+# (kernel, precision, wide window, batches): the main paths' shapes (eval:
+# f32 at 8, bf16 at 128; train: bf16 at 64, flagship and wide), and the
+# 2048-tap supports of logmel_f32 and logmel_bf16 at 8.
+KERNEL_CASES = [
+    ("logmel_f32", "HIGHEST", False, (8, 128)),
+    ("logmel_bf16", "BFLOAT16", False, (8, 64, 128)),
+    ("logmel_f32", "HIGHEST", True, (8,)),
+    ("logmel_bf16", "BFLOAT16", True, (8,)),
+    ("logmel_bf16_wide", "BFLOAT16", True, (8, 64)),
+]
+# The batch of each kernel's row in the kernels line: the eval slice's for
+# K1 and K2 (as before), the train slice's for K3.
+LINE_BATCH = {"logmel_f32": (False, 128), "logmel_bf16": (False, 128),
+              "logmel_bf16_wide": (True, 64)}
 F32_TOL = 1e-4  # log domain, max abs: float32 FMA in another summation order
 # max and mean abs: the same bf16 roundings in another order. A magnitude
 # whose bf16 rounding flips moves its mel bin by at most log(1 + 2**-8) ~ 3.9e-3;
 # such flips are rare, so the mean stays near 1e-8.
 BF16_TOL = (1e-2, 1e-6)
 PROB_TOL = 1e-3  # probabilities, kernel front end vs plain front end
+# Train loss (CE over 309 classes, ~5.7 at these random weights), kernel front
+# end vs plain front end, one step from the same state with the same dropout
+# draws: the two log-mel inputs differ by the rare bf16 flips of BF16_TOL,
+# which the bf16 trunk (8-bit mantissa, ~0.4 % per rounding) carries into
+# the logits; the mean over 64 clips keeps the loss within 1e-2.
+LOSS_TOL = 1e-2
+TRAIN_BATCH = 64
 
 
 def check(ok: bool, msg: str) -> None:
@@ -82,7 +119,22 @@ def peaks(name: str):
     return next((v for k, v in PEAKS.items() if k in name), PEAKS["H100"])
 
 
-def phase_device():
+def zero_launches() -> None:
+    from asf_tpu_torch.ops import logmel as ops
+
+    for name in REPLACES:
+        getattr(ops, name).launches = 0
+
+
+def read_launches() -> dict:
+    from asf_tpu_torch.ops import logmel as ops
+
+    return {name: getattr(ops, name).launches for name in REPLACES}
+
+
+def phase_device() -> str:
+    """Checks the device and builds the kernels; returns the card's name and
+    power limit as ``nvidia-smi`` gives them, which tags every number."""
     check(torch.cuda.is_available(), "no CUDA device")
     check((ROOT / "asf_tpu_torch" / "csrc").is_dir(),
           f"{ROOT} is not a checkout of the repository (asf_tpu_torch/ is missing)")
@@ -91,6 +143,7 @@ def phase_device():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     print(smi[0], flush=True)
+    card = smi[0]
     sys.path.insert(0, str(ROOT))
     from asf_tpu_torch.ops import _build
 
@@ -101,24 +154,27 @@ def phase_device():
     for line in (log or "").splitlines():
         if "registers" in line or "spill" in line or "bytes stack" in line:
             print(f"[build] {line.strip()}")
+    return card
 
 
 def phase_kernels(card: str) -> dict:
     from asf_tpu_torch.dsp.logmel import LogMelParams
-    from asf_tpu_torch.entry import flagship_cfg
+    from asf_tpu_torch.entry import flagship_cfg, wide_window
     from asf_tpu_torch.ops import logmel as ops
     from asf_tpu_torch.utils.torch_setup import disable_tf32
 
     disable_tf32()
     f32_peak, bf16_peak, mem_rate = peaks(card)
-    results = {}
-    for precision, name in (("HIGHEST", "logmel_f32"), ("BFLOAT16", "logmel_bf16")):
-        cfg = flagship_cfg()
+    results = {name: {"max_abs_err": 0.0, "rows": {}} for name in REPLACES}
+    for name, precision, wide, batches in KERNEL_CASES:
+        cfg = wide_window(flagship_cfg()) if wide else flagship_cfg()
         cfg.GPU.DSP_PRECISION = precision
         p = LogMelParams(cfg, "cuda")
+        check(p.ksup == (2048 if wide else 256), f"support {p.ksup} taps")
         kernel, plain = getattr(ops, name), getattr(ops, f"{name}_plain")
-        results[name] = {"max_abs_err": 0.0}
-        for batch in (8, 128):
+        geometry = "wide" if wide else "flagship"
+        for batch in batches:
+            tag = f"{name} {geometry} B={batch}"
             wave = np.random.default_rng(batch).standard_normal((batch, p.clip_samples))
             wave[-1, p.clip_samples // 3 :] = 0.0  # a short record, zero-padded by its host
             wave = torch.from_numpy((wave * 0.1).astype(np.float32)).cuda().to(p.dtype)
@@ -127,23 +183,23 @@ def phase_kernels(card: str) -> dict:
             got = kernel(*args, **geo)
             want = plain(*args, **geo)
             torch.cuda.synchronize()
-            check(got.shape == (batch, 256, 128), f"{name} shape {tuple(got.shape)}")
-            check(bool(torch.isfinite(got).all()), f"{name} gave non-finite values")
+            check(got.shape == (batch, 256, 128), f"{tag} shape {tuple(got.shape)}")
+            check(bool(torch.isfinite(got).all()), f"{tag} gave non-finite values")
             err = (got - want).abs()
             max_err, mean_err = err.max().item(), err.mean().item()
             if p.fast:
                 check(max_err <= BF16_TOL[0] and mean_err <= BF16_TOL[1],
-                      f"{name} B={batch}: max {max_err} mean {mean_err} > {BF16_TOL}")
+                      f"{tag}: max {max_err} mean {mean_err} > {BF16_TOL}")
                 # The same bf16 inputs without the magnitude rounding (:221):
                 # a kernel that skips that rounding lands nearer this.
                 unrounded = ops.logmel_f32_plain(*args, **geo)
                 miss = (got - unrounded).abs().mean().item()
-                check(mean_err < miss, f"{name} B={batch}: mean {mean_err} from the plain "
+                check(mean_err < miss, f"{tag}: mean {mean_err} from the plain "
                       f"version, {miss} from it without the magnitude rounding")
-                print(f"[kernel] {name} B={batch}: mean abs {miss:.3g} from the plain version "
+                print(f"[kernel] {tag}: mean abs {miss:.3g} from the plain version "
                       f"without the magnitude rounding", flush=True)
             else:
-                check(max_err <= F32_TOL, f"{name} B={batch}: max {max_err} > {F32_TOL}")
+                check(max_err <= F32_TOL, f"{tag}: max {max_err} > {F32_TOL}")
             ms = cuda_ms(lambda: kernel(*args, **geo), reps=25)
             plain_ms = cuda_ms(lambda: plain(*args, **geo), reps=20)
             # Work the function must do: the DFT over the aligned support for
@@ -156,12 +212,12 @@ def phase_kernels(card: str) -> dict:
             op_ms, byte_ms = flops / peak * 1e3, nbytes / mem_rate * 1e3
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(op_ms, byte_ms),
                        bound_by="operations" if op_ms >= byte_ms else "bytes",
-                       gflop=flops / 1e9, mbytes=nbytes / 1e6)
-            print(f"[kernel] {name} B={batch}: max_abs_err {max_err:.3g} mean {mean_err:.3g} | "
+                       gflop=flops / 1e9, mbytes=nbytes / 1e6, max_abs_err=max_err)
+            print(f"[kernel] {tag}: max_abs_err {max_err:.3g} mean {mean_err:.3g} | "
                   f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms by "
                   f"{row['bound_by']}; {flops / ms / 1e9:.2f} TFLOP/s) | {card}", flush=True)
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], max_err)
-            results[name][batch] = row
+            results[name]["rows"][(wide, batch)] = row
     return results
 
 
@@ -193,13 +249,12 @@ def phase_slice(card: str) -> tuple[dict, dict]:
     requests += [(serve128, model128, request(128, int16=i == 2)) for i in range(3)]
     torch.cuda.synchronize()
 
-    ops.logmel_f32.launches = 0
-    ops.logmel_bf16.launches = 0
+    zero_launches()
     outputs = [serve(model, *req) for serve, model, req in requests]
     torch.cuda.synchronize()
-    launches = {"logmel_f32": ops.logmel_f32.launches, "logmel_bf16": ops.logmel_bf16.launches}
+    launches = read_launches()
     print(f"[slice] launches on the main path: {launches}", flush=True)
-    check(launches == {"logmel_f32": 4, "logmel_bf16": 3},
+    check(launches == {"logmel_f32": 4, "logmel_bf16": 3, "logmel_bf16_wide": 0},
           f"expected one launch per batch (4 float32, 3 bf16), got {launches}")
 
     for (serve, _, (wave, _)), probs in zip(requests, outputs):
@@ -233,28 +288,131 @@ def phase_slice(card: str) -> tuple[dict, dict]:
         timing[label] = dict(ms=ms, clips_per_s=wave.shape[0] / ms * 1e3)
         print(f"[slice] {label}: {ms:.3f} ms per batch, {wave.shape[0] / ms * 1e3:.1f} clips/s "
               f"(bf16 SlowFast-R50 trunk) | {card}", flush=True)
-    print(f"[slice] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[slice] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"| {card}")
     return launches, timing
 
 
+def train_run(card: str, label: str, cfg, n_steps: int, kernel: str) -> tuple[dict, dict]:
+    """``n_steps`` train steps of ``train_entry(batch=64, cfg=cfg)`` with their
+    checks, the plain-front-end comparison and the step's time."""
+    from asf_tpu_torch.dsp.logmel import edge_pad
+    from asf_tpu_torch.engine.optimizer import get_lr
+    from asf_tpu_torch.engine.pipeline import pack_pathways
+    from asf_tpu_torch.engine.steps import init_state, make_train_step
+    from asf_tpu_torch.entry import train_entry
+    from asf_tpu_torch.models.losses import cross_entropy
+    from asf_tpu_torch.ops import logmel as ops
+    from asf_tpu_torch.utils.lr_policy import get_lr_at_epoch
+
+    step, (state, example) = train_entry(batch=TRAIN_BATCH, cfg=cfg)
+    scfg = step.pipeline.cfg
+    check(scfg.GPU.SPEC_AUGMENT and scfg.SOLVER.NESTEROV and scfg.SOLVER.LR_POLICY == "cosine",
+          "the train step runs SpecAugment and nesterov SGD with the cosine LR")
+    model = state.model
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    # The default SOLVER's cosine (BASE_LR 0.1 over 300 epochs), read at
+    # epochs 200, 210, ...: each step takes a new LR.
+    lrs = [get_lr_at_epoch(scfg, 200.0 + 10.0 * i) for i in range(n_steps)]
+    torch.cuda.synchronize()
+
+    zero_launches()
+    outs = []
+    for lr in lrs:
+        outs.append(step(state, example, lr))
+        check(get_lr(state.optimizer) == lr, f"[{label}] optimizer LR differs from the policy's")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {k: (n_steps if k == kernel else 0) for k in REPLACES}
+    print(f"[train] {label}: launches {launches}", flush=True)
+    check(launches == want, f"[{label}] expected {want}, got {launches}")
+    check(state.step == n_steps, f"[{label}] step count {state.step}")
+
+    losses = [parts["loss"].item() for parts, _ in outs]
+    norms = [parts["grad_norm"].item() for parts, _ in outs]
+    for name, vals in (("loss", losses), ("grad_norm", norms)):
+        check(all(math.isfinite(v) and v > 0 for v in vals), f"[{label}] {name} {vals}")
+    after = model.state_dict()
+    params = {n for n, _ in model.named_parameters()}
+    stats = [k for k in after if k.endswith(("running_mean", "running_var"))]
+    unmoved = [k for k in params | set(stats) if torch.equal(after[k], before[k])]
+    check(not unmoved, f"[{label}] {len(unmoved)} tensors did not move, e.g. {unmoved[:3]}")
+    print(f"[train] {label}: losses {[round(v, 4) for v in losses]}, grad norms "
+          f"{[round(v, 3) for v in norms]}, param norm {outs[-1][0]['param_norm'].item():.3f}; "
+          f"{len(params)} parameters and {len(stats)} BN statistics moved; LRs "
+          f"{[round(v, 5) for v in lrs]}", flush=True)
+
+    # One step from a copy of this state, SpecAugment off on both sides:
+    # through the kernel (the step itself) and through the plain front end.
+    ncfg = scfg.clone()
+    ncfg.GPU.SPEC_AUGMENT = False
+    nstep = make_train_step(ncfg, example["waveform"].device)
+    p = nstep.pipeline.params
+    kstate = init_state(ncfg, copy.deepcopy(model))
+    pmodel = copy.deepcopy(model).train()
+    torch.manual_seed(7)  # the head's dropout draws
+    kloss = nstep(kstate, example, lrs[-1])[0]["loss"].item()
+    with torch.no_grad():
+        log_mel = getattr(ops, f"{kernel}_plain")(
+            example["waveform"].to(p.dtype).contiguous(), p.w_cos, p.w_sin, p.mel_w,
+            **p.geometry(example["waveform"].shape[1]))
+        paths = pack_pathways(ncfg, edge_pad(log_mel, example["n_valid"], p.hop,
+                                             ncfg.AUDIO_DATA.NUM_FRAMES))
+    torch.manual_seed(7)
+    ploss = cross_entropy(pmodel(paths), example["labels"]["class_id"]).item()
+    diff = abs(kloss - ploss)
+    print(f"[train] {label}: loss {kloss:.6f} through {kernel}, {ploss:.6f} through its plain "
+          f"version (SpecAugment off), difference {diff:.3g}", flush=True)
+    check(diff <= LOSS_TOL, f"[{label}] losses differ by {diff} > {LOSS_TOL}")
+
+    ms = cuda_ms(lambda: step(state, example, lrs[-1]), reps=10, warmup=2)
+    timing = dict(ms=ms, clips_per_s=TRAIN_BATCH / ms * 1e3, loss_diff=diff)
+    print(f"[train] {label}: {ms:.3f} ms per step, {timing['clips_per_s']:.1f} clips/s at "
+          f"B={TRAIN_BATCH} (bf16 SlowFast-R50, SpecAugment, nesterov SGD) | {card}", flush=True)
+    return launches, timing
+
+
+def phase_train(card: str) -> dict:
+    from asf_tpu_torch.entry import flagship_cfg, wide_window
+
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    for label, cfg, n_steps, kernel in (("flagship", flagship_cfg(), 5, "logmel_bf16"),
+                                        ("wide window", wide_window(flagship_cfg()), 3,
+                                         "logmel_bf16_wide")):
+        counts, _ = train_run(card, label, cfg, n_steps, kernel)
+        launches[label] = counts
+    print(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"| {card}", flush=True)
+    return launches
+
+
 def main() -> None:
-    phase_device()
-    card = torch.cuda.get_device_name(0)
+    card = phase_device()
     kernels = phase_kernels(card)
-    launches, _ = phase_slice(card)
+    eval_launches, _ = phase_slice(card)
+    train_launches = phase_train(card)
+    paths = {"eval": eval_launches, **{f"train {k}": v for k, v in train_launches.items()}}
     line = []
     for name, res in kernels.items():
-        row = res[128]
+        wide, batch = LINE_BATCH[name]
+        row = res["rows"][(wide, batch)]
         line.append({
             "name": name, "route": "cuda", "source": "asf_tpu_torch/csrc/logmel.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": sum(counts[name] for counts in paths.values()),
             "max_abs_err": res["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
-            "batch": 128, "ms_b8": res[8]["ms"], "plain_ms_b8": res[8]["plain_ms"],
-            "bound_ms_b8": res[8]["bound_ms"],
+            "batch": batch, "support_taps": 2048 if wide else 256,
+            "launches_by_path": {k: counts[name] for k, counts in paths.items()},
+            "other_shapes": {
+                f"{'wide' if w else 'flagship'} B={b}": {
+                    k: r[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+                for (w, b), r in res["rows"].items() if (w, b) != (wide, batch)},
         })
     print(json.dumps({"kernels": line}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 
 

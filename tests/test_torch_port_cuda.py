@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from asf_tpu_torch.dsp.logmel import LogMelParams
-from asf_tpu_torch.entry import flagship_cfg
+from asf_tpu_torch.entry import flagship_cfg, wide_window
 from asf_tpu_torch.ops import logmel as ops
 from asf_tpu_torch.utils.torch_setup import disable_tf32
 
@@ -23,9 +23,9 @@ pytestmark = [
 ]
 
 
-def _params(precision):
+def _params(precision, wide=False):
     disable_tf32()
-    cfg = flagship_cfg()
+    cfg = wide_window(flagship_cfg()) if wide else flagship_cfg()
     cfg.GPU.DSP_PRECISION = precision
     return LogMelParams(cfg, "cuda")
 
@@ -37,12 +37,23 @@ def _wave(p, batch):
     return torch.from_numpy(wave * 0.1).cuda().to(p.dtype)
 
 
-@pytest.mark.parametrize("precision", ["HIGHEST", "BFLOAT16"])
-def test_kernel_matches_plain_version(precision):
-    p = _params(precision)
+# (kernel, precision, wide): K1 and K2 at the flagship's 256-tap support and
+# at the wide window's 2048 taps (tiled in chunks of 256), K3 at 2048 taps.
+CASES = [
+    ("logmel_f32", "HIGHEST", False),
+    ("logmel_bf16", "BFLOAT16", False),
+    ("logmel_f32", "HIGHEST", True),
+    ("logmel_bf16", "BFLOAT16", True),
+    ("logmel_bf16_wide", "BFLOAT16", True),
+]
+
+
+@pytest.mark.parametrize("name,precision,wide", CASES)
+def test_kernel_matches_plain_version(name, precision, wide):
+    p = _params(precision, wide)
+    assert p.ksup == (2048 if wide else 256)
     wave = _wave(p, 4)
-    wrapper, plain = (ops.logmel_bf16, ops.logmel_bf16_plain) if p.fast else (
-        ops.logmel_f32, ops.logmel_f32_plain)
+    wrapper, plain = getattr(ops, name), getattr(ops, f"{name}_plain")
     geo = p.geometry(p.clip_samples)
     before = wrapper.launches
     got = wrapper(wave, p.w_cos, p.w_sin, p.mel_w, **geo)

@@ -102,6 +102,10 @@ def test_profile_busy_time_and_kernel_groups():
     assert busy_us([]) == 0
     assert group_of("void (anonymous namespace)::logmel_kernel<float>(float const*)") == \
         "log-mel kernel"
+    assert group_of("(anonymous namespace)::logmel_wide_kernel(__nv_bfloat16 const*)") == \
+        "log-mel kernel"
+    assert group_of("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<>") == \
+        "optimizer"
     assert group_of("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32") == "convolution"
     assert group_of("void at::native::batch_norm_transform_input_kernel<c10::BFloat16>") == \
         "batch norm"
