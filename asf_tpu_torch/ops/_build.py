@@ -2,9 +2,10 @@
 
 Each ``asf_tpu_torch/csrc/<name>.cu`` has a plain C interface and becomes
 ``build/kernels/<name>-<hash>.so`` at the root of the checkout (the
-directory is git-ignored). The hash covers the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded. Nothing is
-built when a module is imported: ``load`` builds on first use.
+directory is git-ignored). The hash covers every file under ``csrc/`` (the
+``.cu`` and the headers it includes) and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded. Nothing is built when
+a module is imported: ``load`` builds on first use.
 """
 
 from __future__ import annotations
@@ -34,9 +35,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        digest.update(str(path.relative_to(CSRC)).encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> str | None:

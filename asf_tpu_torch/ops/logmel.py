@@ -10,12 +10,13 @@ Pallas kernels of ``asf_tpu/ops/logmel_pallas.py``:
 * ``logmel_bf16`` replaces ``_resident_logmel`` (``_kernel_resident``,
   :190-261): the production path (``"BFLOAT16"``). bf16 waveform, basis and
   mel matrix, float32 accumulation, the magnitude rounded to bf16 before the
-  mel product (:221), the log inside the kernel.
+  mel product (:221), the log inside the kernel. Both products run on the
+  tensor cores (``wgmma``).
 * ``logmel_bf16_wide`` replaces ``_hopblock_logmel`` (``_kernel_hopblock``,
   :99-187): the same bf16 function, chosen for wide window supports
-  (``dsp/logmel.py:LogMelParams.hopblock``). It stages the waveform span
-  under a tile of frames instead of a frame tile; K3's hop-blocked layout,
-  a TPU artefact, does not exist here.
+  (``dsp/logmel.py:LogMelParams.hopblock``), and the same kernel as
+  ``logmel_bf16``: K3's hop-blocked layout, a TPU artefact, does not exist
+  here.
 
 All three compute, for frame ``t`` of sample ``b`` (``x`` the un-padded
 waveform, zero outside ``[0, S)``)::
@@ -56,6 +57,8 @@ from . import _build
 # memory is decided by the launch, which returns the CUDA error.
 FREQ_CHUNK = 128
 MEL_WIDTH = 128
+# Terms of one tensor-core partial sum in the bf16 kernel (a wgmma k-step).
+TC_GROUP = 16
 
 
 def frames_of(x: torch.Tensor, ksup: int, hop: int, off: int, n_frames: int) -> torch.Tensor:
@@ -67,14 +70,42 @@ def frames_of(x: torch.Tensor, ksup: int, hop: int, off: int, n_frames: int) -> 
     return x.unfold(1, ksup, hop)
 
 
-def _plain(wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps, round_mag):
+def _toward_zero(s: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32, rounded toward zero."""
+    f = s.float()
+    return torch.where(f.double().abs() > s.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def tc_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over K with the rounding points of the bf16 kernel: the sum
+    of each group of ``TC_GROUP`` consecutive terms rounded toward zero to
+    float32 (what one wgmma with bf16 operands and a fresh float32
+    accumulator returns), and these partial sums added in order in float32
+    from zero. A model of the kernel's arithmetic, not its plain version
+    (``logmel_bf16_tc_model`` is the front end built on it).
+
+    ``a`` and ``b`` hold bf16 values, whose products have 16 significant
+    bits. float64 sums a group exactly while the exponents of its products
+    span fewer than ~33 binades (53 bits less 16, less 4 for the carries of
+    16 terms); wider, float64 rounds first and the rounding toward zero
+    after it may land one float32 step off. Waveform, basis and mel weights
+    are bounded, but a magnitude near zero beside a large one can exceed
+    that span in the mel product."""
+    out = torch.zeros(*a.shape[:-1], b.shape[1], dtype=torch.float32, device=a.device)
+    for k0 in range(0, a.shape[-1], TC_GROUP):
+        out += _toward_zero(a[..., k0:k0 + TC_GROUP].double() @ b[k0:k0 + TC_GROUP].double())
+    return out
+
+
+def _plain(wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps, round_mag,
+           matmul=torch.matmul):
     frames = frames_of(wave.float(), w_cos.shape[0], hop, off, n_frames)
-    re = frames @ w_cos.float()
-    im = frames @ w_sin.float()
+    re = matmul(frames, w_cos.float())
+    im = matmul(frames, w_sin.float())
     mag = torch.sqrt(re * re + im * im)
     if round_mag:
         mag = mag.to(torch.bfloat16).float()
-    return torch.log(mag @ mel_w.float() + eps)[..., :n_mels]
+    return torch.log(matmul(mag, mel_w.float()) + eps)[..., :n_mels]
 
 
 def logmel_f32_plain(wave, w_cos, w_sin, mel_w, *, hop, off, n_frames, n_mels, eps=1e-6):
@@ -83,9 +114,17 @@ def logmel_f32_plain(wave, w_cos, w_sin, mel_w, *, hop, off, n_frames, n_mels, e
 
 
 def logmel_bf16_plain(wave, w_cos, w_sin, mel_w, *, hop, off, n_frames, n_mels, eps=1e-6):
-    """Plain PyTorch version of ``logmel_bf16``: float32 products of the
-    bf16 inputs, with the magnitude rounded to bf16 before the mel product."""
+    """Plain PyTorch version of ``logmel_bf16``: float32 products of the bf16
+    inputs (TF32 must be off), the magnitude rounded to bf16 before the mel
+    product."""
     return _plain(wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps, True)
+
+
+def logmel_bf16_tc_model(wave, w_cos, w_sin, mel_w, *, hop, off, n_frames, n_mels, eps=1e-6):
+    """``logmel_bf16``'s function summed at the bf16 kernel's rounding points
+    (``tc_matmul``; float64 products, so slow): a model of the kernel, not
+    its plain version."""
+    return _plain(wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps, True, tc_matmul)
 
 
 # K3 computes K2's function: one plain version serves both.
@@ -128,9 +167,18 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.logmel_f32, lib.logmel_bf16, lib.logmel_bf16_wide):
         fn.argtypes = args
         fn.restype = ctypes.c_int
+    lib.logmel_tc_frames_per_block.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.logmel_tc_frames_per_block.restype = ctypes.c_int
     lib.logmel_error_string.argtypes = [ctypes.c_int]
     lib.logmel_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def tc_frames_per_block(hop: int, ksup: int) -> int:
+    """Frames per block of the bf16 kernel at this hop and support on the
+    current CUDA device: 128, or fewer where the span of a wide hop would not
+    fit the block's shared memory."""
+    return _lib().logmel_tc_frames_per_block(hop, ksup)
 
 
 def _launch(symbol, wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps):
@@ -150,9 +198,12 @@ def _launch(symbol, wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps):
     return out
 
 
-def _wrapper(symbol, dtype, plain, doc):
+def _wrapper(symbol, dtype, plain, doc, reference=None):
     """The wrapper of kernel ``symbol``: checks its arguments, takes ``plain``
-    for CPU tensors, launches the kernel for CUDA tensors and counts it."""
+    for CPU tensors, launches the kernel for CUDA tensors and counts it.
+    ``reference`` (default ``plain``) is the plain PyTorch front end that
+    sums as the kernel does, which ``chip_smoke.py`` holds the eval
+    probabilities to."""
 
     def wrapper(wave, w_cos, w_sin, mel_w, *, hop, off, n_frames, n_mels, eps=1e-6):
         _check(wave, w_cos, w_sin, mel_w, dtype, hop, n_frames, n_mels)
@@ -166,6 +217,7 @@ def _wrapper(symbol, dtype, plain, doc):
     wrapper.__name__ = wrapper.__qualname__ = symbol
     wrapper.__doc__ = doc
     wrapper.launches = 0
+    wrapper.reference = reference or plain
     return wrapper
 
 
@@ -175,6 +227,8 @@ logmel_f32 = _wrapper("logmel_f32", torch.float32, logmel_f32_plain, """\
 ``w_cos``/``w_sin`` are the (ksup, kf) support rows of the windowed DFT
 basis, ``mel_w`` the (kf, 128) mel matrix, zero-padded.""")
 logmel_bf16 = _wrapper("logmel_bf16", torch.bfloat16, logmel_bf16_plain,
-                       "The same function on a bf16 waveform, basis and mel matrix; float32 out.")
+                       "The same function on a bf16 waveform, basis and mel matrix; float32 out.",
+                       logmel_bf16_tc_model)
 logmel_bf16_wide = _wrapper("logmel_bf16_wide", torch.bfloat16, logmel_bf16_wide_plain,
-                            "``logmel_bf16``'s function by K3's kernel, for wide window supports.")
+                            "``logmel_bf16``'s function and kernel, under K3's symbol: the "
+                            "launch for wide window supports.", logmel_bf16_tc_model)

@@ -48,19 +48,15 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("name,precision,wide", CASES)
-def test_kernel_matches_plain_version(name, precision, wide):
-    p = _params(precision, wide)
-    assert p.ksup == (2048 if wide else 256)
-    wave = _wave(p, 4)
+def _held_to_plain(name, p, wave, geo):
+    """Launches kernel ``name`` once and holds it to its plain version."""
     wrapper, plain = getattr(ops, name), getattr(ops, f"{name}_plain")
-    geo = p.geometry(p.clip_samples)
     before = wrapper.launches
     got = wrapper(wave, p.w_cos, p.w_sin, p.mel_w, **geo)
     want = plain(wave, p.w_cos, p.w_sin, p.mel_w, **geo)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
-    assert got.shape == want.shape == (4, 256, 128)
+    assert got.shape == want.shape == (wave.shape[0], geo["n_frames"], 128)
     err = (got - want).abs()
     if p.fast:  # the same bf16 roundings; only the summation order differs
         assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-6
@@ -70,6 +66,63 @@ def test_kernel_matches_plain_version(name, precision, wide):
         assert err.mean().item() < (got - unrounded).abs().mean().item()
     else:
         assert err.max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("name,precision,wide", CASES)
+def test_kernel_matches_plain_version(name, precision, wide):
+    p = _params(precision, wide)
+    assert p.ksup == (2048 if wide else 256)
+    _held_to_plain(name, p, _wave(p, 4), p.geometry(p.clip_samples))
+
+
+# (batch, n_frames, hop, off) away from the main paths' shapes for the bf16
+# tensor-core kernel (128-frame tiles): frame counts that are not a multiple
+# of the tile, one sample, hops that are not a multiple of 8 (121 is odd, so
+# half the frame rows start on an odd sample), and a positive offset beside
+# the geometry's negative one. None keeps the geometry's value; every wave
+# has the short last record of ``_wave``.
+EDGE_CASES = [
+    (1, None, None, None),
+    (3, 200, None, None),
+    (3, 257, None, None),
+    (2, None, 100, None),
+    (2, None, 121, None),
+    (2, None, None, 37),
+    (2, 257, 121, 37),
+]
+
+
+@pytest.mark.parametrize("name,wide", [("logmel_bf16", False), ("logmel_bf16_wide", True)])
+@pytest.mark.parametrize("batch,n_frames,hop,off", EDGE_CASES)
+def test_bf16_kernel_edge_cases(name, wide, batch, n_frames, hop, off):
+    p = _params("BFLOAT16", wide)
+    geo = p.geometry(p.clip_samples)
+    assert geo["off"] < 0
+    if hop is not None:
+        geo.update(hop=hop, n_frames=1 + p.clip_samples // hop)
+    if n_frames is not None:
+        geo["n_frames"] = n_frames
+    if off is not None:
+        geo["off"] = off
+    _held_to_plain(name, p, _wave(p, batch), geo)
+
+
+# Hops whose span of 128 frames does not fit a block's shared memory at
+# either support: the bf16 kernel takes fewer frames per block (64 at 700
+# and at the odd 331, 16 at the odd 2001), where the main paths' geometries
+# take 128.
+WIDE_HOPS = [700, 331, 2001]
+
+
+@pytest.mark.parametrize("name,wide", [("logmel_bf16", False), ("logmel_bf16_wide", True)])
+@pytest.mark.parametrize("hop", WIDE_HOPS)
+def test_bf16_kernel_wide_hops(name, wide, hop):
+    p = _params("BFLOAT16", wide)
+    geo = p.geometry(p.clip_samples)
+    assert ops.tc_frames_per_block(geo["hop"], p.ksup) == 128
+    geo.update(hop=hop, n_frames=1 + p.clip_samples // hop)
+    assert ops.tc_frames_per_block(hop, p.ksup) < 128
+    _held_to_plain(name, p, _wave(p, 2), geo)
 
 
 def test_kernel_rejects_weights_on_another_device():
