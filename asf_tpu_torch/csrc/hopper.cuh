@@ -1,5 +1,5 @@
-// PTX helpers for Hopper (sm_90a): mbarriers, TMA tile loads and wgmma with
-// A from registers and B from shared memory. Device code only; the tensor
+// PTX helpers for Hopper (sm_90a): mbarriers, cp.async, TMA tile loads and
+// wgmma with A from registers and B from shared memory. Device code only; the tensor
 // maps the TMA loads read are encoded on the host (logmel.cu).
 
 #pragma once
@@ -65,6 +65,30 @@ __device__ __forceinline__ uint32_t lds_b32(uint32_t addr) {
   uint32_t v;
   asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(addr));
   return v;
+}
+
+// ---- cp.async ----------------------------------------------------------------
+
+// 16 bytes from global `src` to shared `dst` (both 16-byte aligned),
+// bypassing L1; with `valid` false nothing is read and `dst` gets zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4 bytes, the same way (through L1: no alignment beyond 4 bytes needed).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Waits until at most kPending of the thread's committed groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
 }
 
 // ---- TMA ---------------------------------------------------------------------

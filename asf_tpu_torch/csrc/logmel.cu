@@ -18,17 +18,53 @@
 //   out[b][t][m] = log(sum_k mag[k] * mel[k][m] + eps).
 //
 // What bounds them on the H100: operations. At the flagship geometry a frame
-// costs 2*2*256*1025 (DFT) + 2*1025*128 (mel) ~ 1.31 MFLOP against ~1 KB of
-// waveform read and 512 B of output written: ~870 FLOP per byte, far above
-// the card's balance point (~20 FLOP/byte for float32 outside the tensor
-// cores, ~295 for bf16 in them). A 2048-tap support costs 8.66 MFLOP a frame.
+// needs 2*2*239*1024 (the DFT over the window's nonzero taps, for the 1,024
+// frequencies that feed a mel bin) + 2*1024*128 (mel) ~ 1.24 MFLOP against
+// ~1 KB of waveform read and 512 B of output written: ~820 FLOP per byte,
+// far above the card's balance point (~20 FLOP/byte for float32 outside
+// the tensor cores, ~295 for bf16 in them). The kernels run the 256 taps of
+// the aligned support (1.31 MFLOP). A 2047-tap support needs 8.65 MFLOP.
 //
-// logmel_kernel<float> (logmel_f32, the float32 parity path) runs IEEE
-// float32 FMA on the CUDA cores: one block owns one sample and 32 frames,
-// keeps a tap-major frame tile (at most kTapChunk taps, restaged per tap
-// chunk for a wider support) in shared memory, loops over chunks of 128
-// frequencies with the mel sums in registers (no (nk, rows, m) partial stack
-// as on the TPU) and writes the log.
+// logmel_f32_kernel (logmel_f32, the float32 parity path; it replaces
+// _partial_mel, logmel_pallas.py:284, and the caller's sum over frequency
+// tiles and log, :458-464) runs IEEE float32 FMA on the CUDA cores: the TPU
+// kernel runs at Precision.HIGHEST for librosa parity, so no TF32, 3xTF32
+// or split-bf16 product stands in. Two things bound it:
+//   * operations, at the card's 67 TFLOP/s float32 FMA rate. A block of 256
+//     threads owns one sample, a tile of kF32Frames = 128 frames and a slice
+//     of the frequencies, and computes both products as register-blocked
+//     outer products from shared memory: a thread holds re and im of 8
+//     frames x 4 frequencies (the cos and sin sums of one frequency in one
+//     thread), then the mel sums of 8 frames x 8 mels, and issues 64 FMAs
+//     for every four 16-byte shared-memory loads (4 FMAs a word). No weight
+//     is read from device memory in the inner loops;
+//   * L2, for the weights. Every block reads its slice of the weight set
+//     once (w_cos, w_sin: ksup x 64 a frequency chunk; mel: 64 x 128), by
+//     cp.async through a ring of kF32Stages stages of 16 KB, so each weight
+//     byte pulled through L2 serves 128 frames (the kernel it replaced: 32;
+//     0.67 GB a launch at flagship B = 128 where it pulled 3.0 GB).
+// Each warp-wide 16-byte load returns 512 bytes to registers, broadcast or
+// not, so the loops are bound by the shared-memory load path about as much
+// as by the FMA pipes (0.48 of the operations bound at flagship B = 128 on
+// an H100; PERF.md has the measurements and tools/fma_probe.py the loop
+// alone). A larger register tile would load less per FMA, but the 64 DFT
+// and 64 mel sums a thread keeps already take 249 registers.
+// The block stages once the waveform span its frames cover, (frames-1)*hop
+// + ksup floats, and builds from it a tap-major A tile of 32 taps x 128
+// frames per DFT stage (frame f, tap c is span[f*hop + c]), double-buffered
+// so that one __syncthreads a stage orders everything. After the last tap
+// stage of a chunk of 64 frequencies the magnitudes go from registers to a
+// shared-memory tile, and two mel stages add them into the 8 x 8 mel sums
+// a thread keeps in registers across the chunks: no (nk, rows, m) partial
+// stack reaches device memory. Where frame tiles x batch would leave SMs
+// idle (16 tiles at B = 8), the grid takes a third dimension of frequency
+// slices (ops/logmel.py:f32_plan fills one wave of the SMs); each slice
+// writes its partial mel sums to a scratch stack the wrapper allocates, and
+// logmel_f32_reduce_kernel adds the slices in a fixed order and takes the
+// log: deterministic, no atomics. Where a wide hop's span of 128 frames
+// does not fit shared memory, the block takes fewer frames (f32_frames,
+// which halves them as tc_frames does); its other rows compute zeros and
+// are not stored.
 //
 // logmel_tc_kernel (logmel_bf16 and logmel_bf16_wide: one kernel, since K3's
 // hop-blocked layout is a TPU artefact) runs both products on the tensor
@@ -78,179 +114,341 @@
 
 namespace {
 
-constexpr int kFrames = 32;     // frames per block
-constexpr int kChunk = 128;     // frequencies per chunk; kf must be a multiple
-constexpr int kMels = 128;      // mel columns of the (kf, kMels) mel matrix
-constexpr int kThreads = 256;
-constexpr int kRow = kFrames + 4;  // shared-memory row stride in floats (16-byte aligned rows)
-constexpr int kTapChunk = 256;     // taps of the frame tile of logmel_kernel
+constexpr int kMels = 128;  // mel columns of the (kf, kMels) mel matrix
 
-__device__ __forceinline__ float to_float(float v) { return v; }
+// |re + i im| with each product and the sum rounded on its own (no FMA
+// contraction), as the plain version computes it.
+__device__ __forceinline__ float magnitude(float re, float im) {
+  return sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
+}
 
-// The magnitude enters the mel product in the weights' type.
-template <typename T>
-__device__ __forceinline__ float mag_in(float v);
-template <>
-__device__ __forceinline__ float mag_in<float>(float v) { return v; }
+// ---- logmel_f32_kernel: the float32 function on the CUDA cores ---------------
 
-// Adds the mel product of one frequency chunk to acc. mag is [kChunk][kRow],
-// frequency-major; thread tid owns mel column tid % 128 of frames
-// (tid / 128) * 16 .. +15, so a warp's magnitude reads are broadcasts.
-template <typename T>
-__device__ __forceinline__ void mel_chunk(const T* __restrict__ mel, int k0,
-                                          const float* mag, int tid, float acc[16]) {
-  const T* mw = mel + static_cast<long long>(k0) * kMels + tid % kMels;
-  const int mf = tid / kMels;
-#pragma unroll 4
-  for (int k = 0; k < kChunk; ++k) {
-    const float w = to_float(mw[k * kMels]);
-    const float4* mg = reinterpret_cast<const float4*>(mag + k * kRow + mf * 16);
+constexpr int kF32Frames = 128;  // rows of a block's products: frames of a tile
+constexpr int kF32Freqs = 64;    // frequencies of a chunk; kf must be a multiple
+constexpr int kF32Taps = 32;     // taps of a DFT stage
+constexpr int kF32Stages = 3;    // ring depth
+constexpr int kF32Threads = 256;
+constexpr int kF32Row = kF32Frames + 4;  // row stride (floats) of the A and magnitude tiles
+// A ring stage: cos | sin of kF32Taps taps x kF32Freqs frequencies, or 32
+// mel rows x kMels: 16 KB either way.
+constexpr int kF32StageFloats = 2 * kF32Taps * kF32Freqs;
+static_assert(kF32StageFloats == 32 * kMels, "a mel stage fills a ring stage");
+static_assert(kF32Freqs == 2 * 32, "two mel stages a frequency chunk");
+
+// Bytes of a block's shared memory: the ring, two A tiles, the magnitude
+// tile and the span of `frames` frames (rounded up to 16 bytes).
+size_t f32_smem(int hop, int ksup, int frames) {
+  const size_t span = (static_cast<size_t>(frames - 1) * hop + ksup + 3) / 4 * 4;
+  return sizeof(float) * (static_cast<size_t>(kF32Stages) * kF32StageFloats +
+                          (2 * kF32Taps + kF32Freqs) * kF32Row + span);
+}
+
+// Issues the cp.async copies of the block's stage s into `slot`. A chunk of
+// frequencies is n_tc DFT stages (taps 32r.., frequencies k0..k0+63 of cos
+// and sin) and two mel stages (mel rows k0 + 32h.., all kMels columns); each
+// thread copies four 16-byte pieces. Taps past the support are zero-filled.
+__device__ __forceinline__ void f32_issue(float* slot, int s, int n_tc, int k_first,
+                                          const float* __restrict__ w_cos,
+                                          const float* __restrict__ w_sin,
+                                          const float* __restrict__ mel, int ksup, int kf,
+                                          int tid) {
+  const int per_chunk = n_tc + 2;
+  const int q = s / per_chunk;
+  const int r = s - q * per_chunk;
+  const int k0 = k_first + q * kF32Freqs;
+  if (r < n_tc) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 v = mg[q];
-      acc[4 * q + 0] = fmaf(v.x, w, acc[4 * q + 0]);
-      acc[4 * q + 1] = fmaf(v.y, w, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(v.z, w, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(v.w, w, acc[4 * q + 3]);
+    for (int i = tid; i < 2 * kF32Taps * (kF32Freqs / 4); i += kF32Threads) {
+      const int half = i / (kF32Taps * (kF32Freqs / 4));  // 0: cos, 1: sin
+      const int row = (i / (kF32Freqs / 4)) % kF32Taps;
+      const int col = (i % (kF32Freqs / 4)) * 4;
+      const int tap = r * kF32Taps + row;
+      const float* src = (half ? w_sin : w_cos) +
+                         static_cast<long long>(min(tap, ksup - 1)) * kf + k0 + col;
+      hopper::cp_async16(slot + half * kF32Taps * kF32Freqs + row * kF32Freqs + col, src,
+                         tap < ksup);
+    }
+  } else {
+    const int k_row = k0 + (r - n_tc) * 32;
+#pragma unroll
+    for (int i = tid; i < 32 * (kMels / 4); i += kF32Threads) {
+      const int row = i / (kMels / 4);
+      const int col = (i % (kMels / 4)) * 4;
+      hopper::cp_async16(slot + row * kMels + col,
+                         mel + static_cast<long long>(k_row + row) * kMels + col, true);
     }
   }
 }
 
-__device__ __forceinline__ void store_log(float* __restrict__ out, const float acc[16], int b,
-                                          int t0, int n_frames, int n_mels, float eps, int tid) {
-  const int mm = tid % kMels;
-  const int mf = tid / kMels;
-  if (mm < n_mels) {
+// Taps c0 .. c0+31 of the block's frames into the tap-major tile a[32][kF32Row]
+// (zeros past the support and past the block's frames). The thread writes
+// one tap of 16 frames 8 apart; a warp writes 8 taps x 4 frames, so its
+// stores fall in 32 different banks.
+__device__ __forceinline__ void f32_build_a(float* a, const float* span, int c0, int frames,
+                                            int hop, int ksup, int tid) {
+  const int c = (tid / 32 % 4) * 8 + tid % 8;
+  const int f0 = tid / 128 * 4 + tid % 32 / 8;
+  const bool tap_in = c0 + c < ksup;
+  const float* src = span + f0 * hop + c0 + c;
+  float* dst = a + c * kF32Row + f0;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int t = t0 + mf * 16 + j;
-      if (t < n_frames) {
-        out[(static_cast<long long>(b) * n_frames + t) * n_mels + mm] = logf(acc[j] + eps);
+  for (int k = 0; k < kF32Frames / 8; ++k) {
+    dst[8 * k] = (tap_in && f0 + 8 * k < frames) ? src[8 * k * hop] : 0.0f;
+  }
+}
+
+// The thread's rows are frames 4fg..4fg+3 and 64+4fg..64+4fg+3 (fg < 16);
+// its columns are frequencies 4g..4g+3 of the chunk in the DFT and mels
+// 4g..4g+3, 64+4g..64+4g+3 in the mel product (g < 16). A warp covers 4
+// values of fg and 8 of g, so each 16-byte load is one shared-memory
+// wavefront, broadcast to 8 (A, magnitudes) or 4 (weights) threads.
+__device__ __forceinline__ void f32_dft_stage(const float* a, const float* w, int fg, int g,
+                                              float (&re)[8][4], float (&im)[8][4]) {
+  const float* ap = a + 4 * fg;
+  const float* cp = w + 4 * g;
+  const float* sp = cp + kF32Taps * kF32Freqs;
+#pragma unroll
+  for (int c = 0; c < kF32Taps; ++c) {
+    const float4 a0 = *reinterpret_cast<const float4*>(ap + c * kF32Row);
+    const float4 a1 = *reinterpret_cast<const float4*>(ap + c * kF32Row + 64);
+    const float4 wc = *reinterpret_cast<const float4*>(cp + c * kF32Freqs);
+    const float4 ws = *reinterpret_cast<const float4*>(sp + c * kF32Freqs);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float cv[4] = {wc.x, wc.y, wc.z, wc.w};
+    const float sv[4] = {ws.x, ws.y, ws.z, ws.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        re[i][j] = fmaf(av[i], cv[j], re[i][j]);
+        im[i][j] = fmaf(av[i], sv[j], im[i][j]);
       }
     }
   }
 }
 
-// Taps c0 .. c0+nc of the block's frames into the tap-major tile [nc][kRow].
-template <typename T>
-__device__ __forceinline__ void stage_taps(float* frames, const T* __restrict__ x, int S,
-                                           int hop, int off, int t0, int c0, int nc, int tid) {
-  for (int i = tid; i < kFrames * nc; i += kThreads) {
-    const int f = i / nc;
-    const int c = i - f * nc;
-    const long long idx = static_cast<long long>(t0 + f) * hop + off + c0 + c;
-    frames[c * kRow + f] = (idx >= 0 && idx < S) ? to_float(x[idx]) : 0.0f;
+// Adds 32 frequencies' magnitudes (mag rows, frequency-major) times their mel
+// rows (w, 32 x kMels) into acc.
+__device__ __forceinline__ void f32_mel_stage(const float* mag, const float* w, int fg, int g,
+                                              float (&acc)[8][8]) {
+  const float* mp = mag + 4 * fg;
+  const float* wp = w + 4 * g;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const float4 g0 = *reinterpret_cast<const float4*>(mp + k * kF32Row);
+    const float4 g1 = *reinterpret_cast<const float4*>(mp + k * kF32Row + 64);
+    const float4 w0 = *reinterpret_cast<const float4*>(wp + k * kMels);
+    const float4 w1 = *reinterpret_cast<const float4*>(wp + k * kMels + 64);
+    const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(gv[i], wv[j], acc[i][j]);
+    }
   }
 }
 
-// At least 3 blocks of 256 threads per SM, so at most 85 registers a thread
-// (80 used, a few bytes spilled). Without the bound the tap-chunk loop takes
-// 82 (bf16) and 92 (float32) registers, the SM holds 2 blocks, and at B = 128
-// the bf16 kernel ran 14 % slower than the single-tile kernel it replaced.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 3)
-logmel_kernel(const T* __restrict__ wave, const T* __restrict__ w_cos,
-              const T* __restrict__ w_sin, const T* __restrict__ mel,
-              float* __restrict__ out, int S, int n_frames, int hop, int off,
-              int ksup, int kf, int n_mels, float eps) {
+// One block: sample blockIdx.y, frames blockIdx.x * frames .. +frames-1,
+// frequency slice blockIdx.z of gridDim.z (chunks split as evenly as they
+// go). With one slice it writes log(sum + eps) to out (batch, n_frames,
+// n_mels); with more it writes slice z's sums to out + z * batch * n_frames
+// * n_mels, for logmel_f32_reduce_kernel.
+__global__ void __launch_bounds__(kF32Threads, 1)
+logmel_f32_kernel(const float* __restrict__ wave, const float* __restrict__ w_cos,
+                  const float* __restrict__ w_sin, const float* __restrict__ mel,
+                  float* __restrict__ out, int S, int n_frames, int hop, int off, int ksup,
+                  int kf, int n_mels, float eps, int frames) {
   extern __shared__ float4 smem4[];
-  const int tile = min(ksup, kTapChunk);
-  float* frames = reinterpret_cast<float*>(smem4);  // [tile][kRow], tap-major
-  float* mag = frames + tile * kRow;                // [kChunk][kRow], frequency-major
+  float* ring = reinterpret_cast<float*>(smem4);         // [kF32Stages][kF32StageFloats]
+  float* a_tiles = ring + kF32Stages * kF32StageFloats;  // [2][kF32Taps][kF32Row]
+  float* mag = a_tiles + 2 * kF32Taps * kF32Row;         // [kF32Freqs][kF32Row]
+  float* span = mag + kF32Freqs * kF32Row;               // span[i] = x[t0*hop + off + i]
 
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kFrames;
   const int tid = threadIdx.x;
-  const T* x = wave + static_cast<long long>(b) * S;
-  const bool resident = ksup <= kTapChunk;  // the whole support fits the tile
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * frames;
+  const int splits = gridDim.z;
+  const int n_chunks = kf / kF32Freqs;
+  const int c_first = blockIdx.z * n_chunks / splits;
+  const int n_stages_chunk = (ksup + kF32Taps - 1) / kF32Taps + 2;
+  const int n_tc = n_stages_chunk - 2;
+  const int n_stages = ((blockIdx.z + 1) * n_chunks / splits - c_first) * n_stages_chunk;
+  const int k_first = c_first * kF32Freqs;
 
-  if (resident) {
-    stage_taps(frames, x, S, hop, off, t0, 0, ksup, tid);
-    __syncthreads();
+  {  // the span (4-byte copies, zeros outside the record) joins stage 0's group
+    const float* x = wave + static_cast<long long>(b) * S;
+    const long long base = static_cast<long long>(t0) * hop + off;
+    const int n_span = (frames - 1) * hop + ksup;
+    for (int i = tid; i < n_span; i += kF32Threads) {
+      const long long idx = base + i;
+      const bool in = idx >= 0 && idx < S;
+      hopper::cp_async4(span + i, x + (in ? idx : 0), in);
+    }
   }
+  for (int s = 0; s < kF32Stages - 1; ++s) {
+    if (s < n_stages)
+      f32_issue(ring + s * kF32StageFloats, s, n_tc, k_first, w_cos, w_sin, mel, ksup, kf, tid);
+    hopper::cp_async_commit();
+  }
+  hopper::cp_async_wait<kF32Stages - 2>();
+  __syncthreads();
+  f32_build_a(a_tiles, span, 0, frames, hop, ksup, tid);
 
-  const int dk = tid % 64;  // DFT: frequencies dk and dk + 64 of the chunk
-  const int df = tid / 64;  // DFT: frames df*8 .. df*8+7
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int fg = (warp / 2) * 4 + lane / 8;
+  const int g = (warp % 2) * 8 + lane % 8;
 
-  float acc[16];
+  float acc[8][8];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) acc[j] = 0.0f;
-
-  for (int k0 = 0; k0 < kf; k0 += kChunk) {
-    float re0[8], re1[8], im0[8], im1[8];
+  for (int i = 0; i < 8; ++i) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) re0[j] = re1[j] = im0[j] = im1[j] = 0.0f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+  float re[8][4], im[8][4];
+  int n_dft = 0;  // DFT stages done: its parity picks the A tile
 
-    for (int c0 = 0; c0 < ksup; c0 += kTapChunk) {
-      const int nc = min(kTapChunk, ksup - c0);
-      if (!resident) {
-        __syncthreads();  // every thread is done with the previous tap chunk
-        stage_taps(frames, x, S, hop, off, t0, c0, nc, tid);
-        __syncthreads();
+  for (int s = 0; s < n_stages; ++s) {
+    // Stage s has landed (this thread's copies, then everyone's), the A tile
+    // of a DFT stage is built, and every thread is done with stage s - 1, so
+    // its ring slot and the other A tile are free.
+    hopper::cp_async_wait<kF32Stages - 2>();
+    __syncthreads();
+    if (s + kF32Stages - 1 < n_stages) {
+      f32_issue(ring + ((s + kF32Stages - 1) % kF32Stages) * kF32StageFloats,
+                s + kF32Stages - 1, n_tc, k_first, w_cos, w_sin, mel, ksup, kf, tid);
+    }
+    hopper::cp_async_commit();
+    const float* slot = ring + (s % kF32Stages) * kF32StageFloats;
+    const int r = s % n_stages_chunk;
+    if (r < n_tc) {
+      if (r == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) re[i][j] = im[i][j] = 0.0f;
+        }
       }
-      const T* wc = w_cos + static_cast<long long>(c0) * kf + k0 + dk;
-      const T* ws = w_sin + static_cast<long long>(c0) * kf + k0 + dk;
-#pragma unroll 4
-      for (int c = 0; c < nc; ++c) {
-        const long long row = static_cast<long long>(c) * kf;
-        const float c0w = to_float(wc[row]);
-        const float c1w = to_float(wc[row + 64]);
-        const float s0w = to_float(ws[row]);
-        const float s1w = to_float(ws[row + 64]);
-        const float4* fr = reinterpret_cast<const float4*>(frames + c * kRow + df * 8);
-        const float4 a = fr[0];
-        const float4 q = fr[1];
-        const float v[8] = {a.x, a.y, a.z, a.w, q.x, q.y, q.z, q.w};
+      f32_dft_stage(a_tiles + (n_dft % 2) * kF32Taps * kF32Row, slot, fg, g, re, im);
+      ++n_dft;
+      // The next DFT stage's taps: this chunk's next 32, or the next chunk's first.
+      const bool last_tap = r + 1 == n_tc;
+      if (!last_tap || s + 3 < n_stages) {
+        f32_build_a(a_tiles + (n_dft % 2) * kF32Taps * kF32Row, span,
+                    last_tap ? 0 : (r + 1) * kF32Taps, frames, hop, ksup, tid);
+      }
+      if (last_tap) {  // the chunk's magnitudes, for its two mel stages
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          re0[j] = fmaf(v[j], c0w, re0[j]);
-          re1[j] = fmaf(v[j], c1w, re1[j]);
-          im0[j] = fmaf(v[j], s0w, im0[j]);
-          im1[j] = fmaf(v[j], s1w, im1[j]);
+        for (int j = 0; j < 4; ++j) {
+          float* row = mag + (4 * g + j) * kF32Row + 4 * fg;
+          *reinterpret_cast<float4*>(row) =
+              make_float4(magnitude(re[0][j], im[0][j]), magnitude(re[1][j], im[1][j]),
+                          magnitude(re[2][j], im[2][j]), magnitude(re[3][j], im[3][j]));
+          *reinterpret_cast<float4*>(row + 64) =
+              make_float4(magnitude(re[4][j], im[4][j]), magnitude(re[5][j], im[5][j]),
+                          magnitude(re[6][j], im[6][j]), magnitude(re[7][j], im[7][j]));
+        }
+      }
+    } else {
+      f32_mel_stage(mag + (r - n_tc) * 32 * kF32Row, slot, fg, g, acc);
+    }
+  }
+  hopper::cp_async_wait<0>();  // no copy outlives the block
+
+  const bool split = splits > 1;
+  float* dst = out + static_cast<long long>(blockIdx.z) * gridDim.y * n_frames * n_mels;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int f = (i < 4 ? 0 : 64) + 4 * fg + i % 4;
+    const int t = t0 + f;
+    if (f >= frames || t >= n_frames) continue;
+    float* row = dst + (static_cast<long long>(b) * n_frames + t) * n_mels;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m0 = 64 * h + 4 * g;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = split ? acc[i][4 * h + j] : logf(acc[i][4 * h + j] + eps);
+      if (n_mels % 4 == 0 && m0 + 4 <= n_mels) {
+        *reinterpret_cast<float4*>(row + m0) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (m0 + j < n_mels) row[m0 + j] = v[j];
         }
       }
     }
-
-    __syncthreads();  // the previous chunk's mel product has read mag
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mag[dk * kRow + df * 8 + j] =
-          mag_in<T>(sqrtf(re0[j] * re0[j] + im0[j] * im0[j]));
-      mag[(dk + 64) * kRow + df * 8 + j] =
-          mag_in<T>(sqrtf(re1[j] * re1[j] + im1[j] * im1[j]));
-    }
-    __syncthreads();
-    mel_chunk(mel, k0, mag, tid, acc);
   }
-  store_log(out, acc, b, t0, n_frames, n_mels, eps, tid);
 }
 
-template <typename T>
-using KernelFn = void (*)(const T*, const T*, const T*, const T*, float*, int, int, int, int,
-                          int, int, int, float);
+// out[i] = log(part[0][i] + ... + part[splits-1][i] + eps), the slices added
+// in order.
+__global__ void __launch_bounds__(256)
+logmel_f32_reduce_kernel(const float* __restrict__ part, float* __restrict__ out, long long n,
+                         int splits, float eps) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float sum = part[i];
+    for (int z = 1; z < splits; ++z) sum += part[z * n + i];
+    out[i] = logf(sum + eps);
+  }
+}
 
-template <typename T>
-int launch(KernelFn<T> kernel, size_t smem, const void* wave, const void* w_cos,
-           const void* w_sin, const void* mel, void* out, int batch, int S, int n_frames,
-           int hop, int off, int ksup, int kf, int n_mels, float eps, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) {  // e.g. more shared memory than a block may use
-    cudaGetLastError();       // clear it, so that no later launch reports it
+// Frames per block of a kernel whose block takes smem(hop, ksup, frames)
+// bytes of shared memory: `tile`, halved while that exceeds what a block may
+// opt in to on the current device. A support too wide even for one frame
+// gets 1, and the launch fails with the CUDA error. Where the limit cannot
+// be read, minus that error.
+int frames_per_block(size_t (*smem)(int, int, int), int tile, int hop, int ksup) {
+  int device = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -static_cast<int>(err);
+  }
+  int frames = tile;
+  while (frames > 1 && smem(hop, ksup, frames) > static_cast<size_t>(limit)) frames /= 2;
+  return frames;
+}
+
+int f32_frames(int hop, int ksup) { return frames_per_block(f32_smem, kF32Frames, hop, ksup); }
+
+int launch_f32(const void* wave, const void* w_cos, const void* w_sin, const void* mel, void* out,
+               void* part, int batch, int S, int n_frames, int hop, int off, int ksup, int kf,
+               int n_mels, float eps, int splits, void* stream) {
+  if (kf % kF32Freqs || splits < 1 || splits > kf / kF32Freqs ||
+      (splits > 1 && part == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int frames = f32_frames(hop, ksup);
+  if (frames < 1) return -frames;
+  const size_t smem = f32_smem(hop, ksup, frames);
+  cudaError_t err = cudaFuncSetAttribute(
+      logmel_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) {  // a span too wide for shared memory
+    cudaGetLastError();
     return static_cast<int>(err);
   }
-  const dim3 grid((n_frames + kFrames - 1) / kFrames, batch);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(wave), static_cast<const T*>(w_cos), static_cast<const T*>(w_sin),
-      static_cast<const T*>(mel), static_cast<float*>(out), S, n_frames, hop, off, ksup, kf,
-      n_mels, eps);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((n_frames + frames - 1) / frames, batch, splits);
+  logmel_f32_kernel<<<grid, kF32Threads, smem, s>>>(
+      static_cast<const float*>(wave), static_cast<const float*>(w_cos),
+      static_cast<const float*>(w_sin), static_cast<const float*>(mel),
+      static_cast<float*>(splits > 1 ? part : out), S, n_frames, hop, off, ksup, kf, n_mels, eps,
+      frames);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long n = static_cast<long long>(batch) * n_frames * n_mels;
+  const int blocks = static_cast<int>(std::min<long long>((n + 255) / 256, 1024));
+  logmel_f32_reduce_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(part),
+                                                  static_cast<float*>(out), n, splits, eps);
   return static_cast<int>(cudaGetLastError());
 }
-
-size_t tile_smem(int ksup) {
-  return static_cast<size_t>(std::min(ksup, kTapChunk) + kChunk) * kRow * sizeof(float);
-}
-
 
 // ---- logmel_tc_kernel: the bf16 function on the tensor cores ----------------
 
@@ -274,12 +472,6 @@ __host__ __device__ __forceinline__ int span_elems(int hop, int ksup, int frames
 __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// |re + i im| with each product and the sum rounded on its own (no FMA
-// contraction), as the plain version computes it.
-__device__ __forceinline__ float magnitude(float re, float im) {
-  return sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
 }
 
 __global__ void __launch_bounds__(kTcThreads, 1)
@@ -547,22 +739,9 @@ size_t tc_smem(int hop, int ksup, int frames) {
          static_cast<size_t>((hop & 1) ? 2 : 1) * span_elems(hop, ksup, frames) * 2;
 }
 
-// Frames per block: kTile, halved while the span of a wide hop does not fit
-// the shared memory a block may opt in to (kTile up to hop ~636 at 2048 taps,
-// ~310 when the hop is odd). A support too wide even for one frame gets 1,
-// and the launch fails with the CUDA error.
-int tc_frames(int hop, int ksup) {
-  int device = 0, limit = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
-          cudaSuccess) {
-    cudaGetLastError();
-    return kTile;
-  }
-  int frames = kTile;
-  while (frames > 1 && tc_smem(hop, ksup, frames) > static_cast<size_t>(limit)) frames /= 2;
-  return frames;
-}
+// Frames per block: kTile up to hop ~636 at 2048 taps, ~310 when the hop is
+// odd; fewer for a wider hop.
+int tc_frames(int hop, int ksup) { return frames_per_block(tc_smem, kTile, hop, ksup); }
 
 int launch_tc(const void* wave, const void* w_cos, const void* w_sin, const void* mel, void* out,
               int batch, int S, int n_frames, int hop, int off, int ksup, int kf, int n_mels,
@@ -574,6 +753,7 @@ int launch_tc(const void* wave, const void* w_cos, const void* w_sin, const void
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int frames = tc_frames(hop, ksup);
+  if (frames < 1) return -frames;
   const size_t smem = tc_smem(hop, ksup, frames);
   cudaError_t err = cudaFuncSetAttribute(
       logmel_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -594,12 +774,15 @@ extern "C" {
 
 // Shapes: wave (batch, S); w_cos, w_sin (ksup, kf); mel (kf, 128); out
 // (batch, n_frames, n_mels) float32; all contiguous on the current device.
-// Returns the cudaError_t of the launch (0 on success).
+// `splits` frequency slices (1..kf/64, kf a multiple of 64), as
+// ops/logmel.py:f32_plan chooses them; with more than one slice, `part` is
+// (splits, batch, n_frames, n_mels) float32 scratch. Returns the
+// cudaError_t of the launches (0 on success).
 int logmel_f32(const void* wave, const void* w_cos, const void* w_sin, const void* mel,
-               void* out, int batch, int S, int n_frames, int hop, int off, int ksup,
-               int kf, int n_mels, float eps, void* stream) {
-  return launch<float>(logmel_kernel<float>, tile_smem(ksup), wave, w_cos, w_sin, mel, out,
-                       batch, S, n_frames, hop, off, ksup, kf, n_mels, eps, stream);
+               void* out, void* part, int batch, int S, int n_frames, int hop, int off,
+               int ksup, int kf, int n_mels, float eps, int splits, void* stream) {
+  return launch_f32(wave, w_cos, w_sin, mel, out, part, batch, S, n_frames, hop, off, ksup, kf,
+                    n_mels, eps, splits, stream);
 }
 
 // The same with bf16 wave, w_cos, w_sin and mel (weights 16-byte aligned, kf
@@ -619,9 +802,11 @@ int logmel_bf16_wide(const void* wave, const void* w_cos, const void* w_sin, con
                    eps, stream);
 }
 
-// Frames per block of logmel_bf16 and logmel_bf16_wide at this hop and
-// support, on the current device.
+// Frames per block of logmel_bf16 and logmel_bf16_wide, and of logmel_f32,
+// at this hop and support on the current device; minus the cudaError_t
+// where the device's shared-memory limit cannot be read.
 int logmel_tc_frames_per_block(int hop, int ksup) { return tc_frames(hop, ksup); }
+int logmel_f32_frames_per_block(int hop, int ksup) { return f32_frames(hop, ksup); }
 
 const char* logmel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

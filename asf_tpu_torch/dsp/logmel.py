@@ -78,14 +78,21 @@ class LogMelParams:
             and (self.j_eff * 128) / self.ksup <= 1.55
         )
 
-        kf = _round_up(self.n_freqs, ops.FREQ_CHUNK)
+        # Nonzero row extent of the mel matrix: a frequency outside it (the
+        # DC bin at the flagship geometry) feeds no mel bin, so its DFT column
+        # is dropped as exactly as the zero basis rows are. Basis column j is
+        # frequency freqs[0] + j.
+        nzf = np.flatnonzero(np.abs(mel_w).sum(axis=1) > 0.0)
+        self.freqs = (int(nzf[0]), int(nzf[-1]) + 1) if nzf.size else (0, self.n_freqs)
+        f0, f1 = self.freqs
+        kf = _round_up(f1 - f0, ops.FREQ_CHUNK)
         m = _round_up(self.n_mels, ops.MEL_WIDTH)
         wc = np.zeros((self.ksup, kf), np.float32)
         ws = np.zeros((self.ksup, kf), np.float32)
-        wc[:, : self.n_freqs] = w_cos[self.s0a : self.s1a]
-        ws[:, : self.n_freqs] = w_sin[self.s0a : self.s1a]
+        wc[:, : f1 - f0] = w_cos[self.s0a : self.s1a, f0:f1]
+        ws[:, : f1 - f0] = w_sin[self.s0a : self.s1a, f0:f1]
         melp = np.zeros((kf, m), np.float32)
-        melp[: self.n_freqs, : self.n_mels] = mel_w
+        melp[: f1 - f0, : self.n_mels] = mel_w[f0:f1]
         # float64 -> float32 -> compute dtype: the same two roundings as asf_tpu.
         self.w_cos = torch.from_numpy(wc).to(device=device, dtype=self.dtype)
         self.w_sin = torch.from_numpy(ws).to(device=device, dtype=self.dtype)

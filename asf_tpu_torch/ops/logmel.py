@@ -5,8 +5,12 @@ Pallas kernels of ``asf_tpu/ops/logmel_pallas.py``:
 
 * ``logmel_f32`` replaces ``_partial_mel`` (``_kernel``, :264-310) and the
   caller's sum over frequency tiles and log (:458-464): the float32 parity
-  path (``DSP_PRECISION="HIGHEST"``). It sums the frequency chunks in
-  registers and writes no ``(nk, rows, m)`` partial stack.
+  path (``DSP_PRECISION="HIGHEST"``), IEEE float32 FMA on the CUDA cores.
+  A block owns one sample, 128 frames and a slice of the frequencies
+  (``f32_plan``). With one slice it sums the frequency chunks in registers
+  and writes no ``(nk, rows, m)`` partial stack; at small batch the grid
+  splits the frequencies, as the TPU kernel does, into a scratch stack that
+  a second kernel of the same call adds in a fixed order before the log.
 * ``logmel_bf16`` replaces ``_resident_logmel`` (``_kernel_resident``,
   :190-261): the production path (``"BFLOAT16"``). bf16 waveform, basis and
   mel matrix, float32 accumulation, the magnitude rounded to bf16 before the
@@ -28,16 +32,18 @@ with ``off = s0a - n_fft//2``: the librosa centre padding and the
 window-support trim in one index, so neither the Pallas ``frame_waveform``
 pre-pass nor a frame tensor in device memory exists on the card.
 
-What bounds them on the H100 is operations, not bytes: ~1.31 MFLOP per
-frame at the flagship geometry (8.66 MFLOP at a 2048-tap support) against
-~1.5 KB moved. The design notes are
+What bounds them on the H100 is operations, not bytes: the function needs
+~1.24 MFLOP per frame at the flagship geometry (the window's 239 nonzero
+taps, 1,024 frequencies; 8.65 MFLOP at a 2047-tap support) against ~1.5 KB
+moved. The design notes are
 in the CUDA source. There is no single PyTorch call for this function
 (``torch.stft`` has no support trim and no mel or log), so the kernels have
 no library yardstick.
 
 A wrapper validates its arguments, then takes the plain version for CPU
-tensors and launches its kernel for CUDA tensors. Each launch adds one to
-the wrapper's ``launches`` count; nothing else does. No kernel has a
+tensors and launches its kernel for CUDA tensors. Each call that launches
+adds one to the wrapper's ``launches`` count (``logmel_f32``'s reduce
+kernel belongs to its call); nothing else does. No kernel has a
 backward (nor have K1-K3): a wrapper raises on an input that requires grad.
 """
 
@@ -51,14 +57,34 @@ import torch.nn.functional as F
 
 from . import _build
 
-# The padded weight layout the kernels read (csrc/logmel.cu kChunk, kMels)
-# and ``LogMelParams`` builds: basis width a multiple of FREQ_CHUNK, mel
-# matrix MEL_WIDTH columns wide. Whether a support fits the kernel's shared
-# memory is decided by the launch, which returns the CUDA error.
-FREQ_CHUNK = 128
+# The padded weight layout the kernels read and ``LogMelParams`` builds:
+# basis width a multiple of FREQ_CHUNK (logmel_f32's frequency chunk,
+# csrc/logmel.cu kF32Freqs, and the unit of its frequency slices; the bf16
+# kernel takes multiples of 32), mel matrix MEL_WIDTH (kMels) columns wide.
+# Whether a support fits the kernel's shared memory is decided by the
+# launch, which returns the CUDA error.
+FREQ_CHUNK = 64
 MEL_WIDTH = 128
 # Terms of one tensor-core partial sum in the bf16 kernel (a wgmma k-step).
 TC_GROUP = 16
+
+
+def f32_plan(batch: int, n_frames: int, frames: int, kf: int, n_sms: int) -> int:
+    """Frequency slices of a ``logmel_f32`` launch whose blocks take
+    ``frames`` frames (``f32_frames_per_block``). Frame tiles x batch that
+    leave SMs idle take as many slices as fill one wave of ``n_sms`` (at
+    least one chunk of ``FREQ_CHUNK`` frequencies a slice); at least one wave
+    of tiles takes one."""
+    tiles = batch * -(-n_frames // frames)
+    return max(1, min(kf // FREQ_CHUNK, n_sms // tiles))
+
+
+def f32_slices(kf: int, splits: int) -> list[tuple[int, int]]:
+    """The frequency range ``[k0, k1)`` of each slice, as the kernel splits
+    ``kf`` (whole chunks of ``FREQ_CHUNK``, as evenly as they go)."""
+    n = kf // FREQ_CHUNK
+    return [(z * n // splits * FREQ_CHUNK, (z + 1) * n // splits * FREQ_CHUNK)
+            for z in range(splits)]
 
 
 def frames_of(x: torch.Tensor, ksup: int, hop: int, off: int, n_frames: int) -> torch.Tensor:
@@ -164,71 +190,125 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("logmel")
     # every pointer and the stream as c_void_p: a bare int would be cut to 32 bits
     args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-    for fn in (lib.logmel_f32, lib.logmel_bf16, lib.logmel_bf16_wide):
+    for fn in (lib.logmel_bf16, lib.logmel_bf16_wide):
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    lib.logmel_tc_frames_per_block.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.logmel_tc_frames_per_block.restype = ctypes.c_int
+    lib.logmel_f32.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.logmel_f32.restype = ctypes.c_int
+    for fn in (lib.logmel_tc_frames_per_block, lib.logmel_f32_frames_per_block):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_int
     lib.logmel_error_string.argtypes = [ctypes.c_int]
     lib.logmel_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _frames(symbol: str, hop: int, ksup: int) -> int:
+    lib = _lib()
+    frames = getattr(lib, symbol)(hop, ksup)
+    if frames < 1:
+        raise RuntimeError(f"{symbol}: the device's shared-memory limit cannot be read: "
+                           f"{lib.logmel_error_string(-frames).decode()}")
+    return frames
 
 
 def tc_frames_per_block(hop: int, ksup: int) -> int:
     """Frames per block of the bf16 kernel at this hop and support on the
     current CUDA device: 128, or fewer where the span of a wide hop would not
     fit the block's shared memory."""
-    return _lib().logmel_tc_frames_per_block(hop, ksup)
+    return _frames("logmel_tc_frames_per_block", hop, ksup)
 
 
-def _launch(symbol, wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps):
+def f32_frames_per_block(hop: int, ksup: int) -> int:
+    """The same for ``logmel_f32``'s kernel, whose blocks decide it the same
+    way (csrc/logmel.cu:frames_per_block)."""
+    return _frames("logmel_f32_frames_per_block", hop, ksup)
+
+
+@functools.cache
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def f32_device_plan(batch: int, n_frames: int, hop: int, ksup: int, kf: int,
+                    device) -> tuple[int, int]:
+    """``(frames, splits)`` of a ``logmel_f32`` launch on CUDA ``device``:
+    frames a block and ``f32_plan``'s slices on the device's SM count."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    with torch.cuda.device(index):
+        frames = f32_frames_per_block(hop, ksup)
+    return frames, f32_plan(batch, n_frames, frames, kf, _n_sms(index))
+
+
+def _run(symbol, wave, *args):
+    lib = _lib()
+    with torch.cuda.device(wave.device):
+        err = getattr(lib, symbol)(wave.data_ptr(), *args,
+                                   torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{symbol} launch failed: {lib.logmel_error_string(err).decode()}")
+
+
+def _launch_tc(symbol, wave, w_cos, w_sin, mel_w, *, hop, off, n_frames, n_mels, eps):
     batch, n_samples = wave.shape
     ksup, kf = w_cos.shape
     out = torch.empty((batch, n_frames, n_mels), dtype=torch.float32, device=wave.device)
-    lib = _lib()
-    with torch.cuda.device(wave.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, symbol)(
-            wave.data_ptr(), w_cos.data_ptr(), w_sin.data_ptr(), mel_w.data_ptr(),
-            out.data_ptr(), batch, n_samples, n_frames, hop, off, ksup, kf, n_mels,
-            eps, stream,
-        )
-    if err:
-        raise RuntimeError(f"{symbol} launch failed: {lib.logmel_error_string(err).decode()}")
+    _run(symbol, wave, w_cos.data_ptr(), w_sin.data_ptr(), mel_w.data_ptr(), out.data_ptr(),
+         batch, n_samples, n_frames, hop, off, ksup, kf, n_mels, eps)
     return out
 
 
-def _wrapper(symbol, dtype, plain, doc, reference=None):
+def _launch_f32(wave, w_cos, w_sin, mel_w, *, hop, off, n_frames, n_mels, eps=1e-6, splits=None):
+    """``logmel_f32``'s launch on CUDA tensors in ``splits`` frequency slices
+    (default: the plan's). The wrapper checks the arguments and counts the
+    launch; a caller that forces the slices (tests, the other branch in
+    ``chip_smoke.py``) comes here and is not counted."""
+    batch, n_samples = wave.shape
+    ksup, kf = w_cos.shape
+    if splits is None:
+        splits = f32_device_plan(batch, n_frames, hop, ksup, kf, wave.device)[1]
+    if not 1 <= splits <= kf // FREQ_CHUNK:
+        raise ValueError(f"splits must be 1..{kf // FREQ_CHUNK}, got {splits}")
+    out = torch.empty((batch, n_frames, n_mels), dtype=torch.float32, device=wave.device)
+    part = (torch.empty((splits, batch, n_frames, n_mels), dtype=torch.float32,
+                        device=wave.device) if splits > 1 else None)
+    _run("logmel_f32", wave, w_cos.data_ptr(), w_sin.data_ptr(), mel_w.data_ptr(),
+         out.data_ptr(), None if part is None else part.data_ptr(), batch, n_samples, n_frames,
+         hop, off, ksup, kf, n_mels, eps, splits)
+    return out
+
+
+def _wrapper(symbol, dtype, plain, launch, doc):
     """The wrapper of kernel ``symbol``: checks its arguments, takes ``plain``
-    for CPU tensors, launches the kernel for CUDA tensors and counts it.
-    ``reference`` (default ``plain``) is the plain PyTorch front end that
-    sums as the kernel does, which ``chip_smoke.py`` holds the eval
-    probabilities to."""
+    for CPU tensors, launches the kernel for CUDA tensors and counts the call
+    (one per call, whatever kernels the call launches)."""
 
     def wrapper(wave, w_cos, w_sin, mel_w, *, hop, off, n_frames, n_mels, eps=1e-6):
         _check(wave, w_cos, w_sin, mel_w, dtype, hop, n_frames, n_mels)
+        geo = dict(hop=hop, off=off, n_frames=n_frames, n_mels=n_mels, eps=eps)
         if wave.device.type == "cpu":
-            return plain(wave, w_cos, w_sin, mel_w, hop=hop, off=off, n_frames=n_frames,
-                         n_mels=n_mels, eps=eps)
-        out = _launch(symbol, wave, w_cos, w_sin, mel_w, hop, off, n_frames, n_mels, eps)
+            return plain(wave, w_cos, w_sin, mel_w, **geo)
+        out = launch(wave, w_cos, w_sin, mel_w, **geo)
         wrapper.launches += 1
         return out
 
     wrapper.__name__ = wrapper.__qualname__ = symbol
     wrapper.__doc__ = doc
     wrapper.launches = 0
-    wrapper.reference = reference or plain
     return wrapper
 
 
-logmel_f32 = _wrapper("logmel_f32", torch.float32, logmel_f32_plain, """\
+logmel_f32 = _wrapper("logmel_f32", torch.float32, logmel_f32_plain, _launch_f32, """\
 (B, S) float32 waveform -> (B, n_frames, n_mels) float32 log-mel.
 
 ``w_cos``/``w_sin`` are the (ksup, kf) support rows of the windowed DFT
 basis, ``mel_w`` the (kf, 128) mel matrix, zero-padded.""")
 logmel_bf16 = _wrapper("logmel_bf16", torch.bfloat16, logmel_bf16_plain,
-                       "The same function on a bf16 waveform, basis and mel matrix; float32 out.",
-                       logmel_bf16_tc_model)
+                       functools.partial(_launch_tc, "logmel_bf16"),
+                       "The same function on a bf16 waveform, basis and mel matrix; float32 out.")
 logmel_bf16_wide = _wrapper("logmel_bf16_wide", torch.bfloat16, logmel_bf16_wide_plain,
+                            functools.partial(_launch_tc, "logmel_bf16_wide"),
                             "``logmel_bf16``'s function and kernel, under K3's symbol: the "
-                            "launch for wide window supports.", logmel_bf16_tc_model)
+                            "launch for wide window supports.")

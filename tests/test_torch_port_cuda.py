@@ -48,24 +48,29 @@ CASES = [
 ]
 
 
-def _held_to_plain(name, p, wave, geo):
-    """Launches kernel ``name`` once and holds it to its plain version."""
+def _held_to_plain(name, p, wave, geo, splits=None):
+    """Launches kernel ``name`` once through its wrapper, or ``logmel_f32``'s
+    in ``splits`` frequency slices, and holds it to its plain version;
+    returns what the kernel gave."""
     wrapper, plain = getattr(ops, name), getattr(ops, f"{name}_plain")
+    args = (wave, p.w_cos, p.w_sin, p.mel_w)
     before = wrapper.launches
-    got = wrapper(wave, p.w_cos, p.w_sin, p.mel_w, **geo)
-    want = plain(wave, p.w_cos, p.w_sin, p.mel_w, **geo)
+    got = wrapper(*args, **geo) if splits is None else ops._launch_f32(*args, **geo,
+                                                                       splits=splits)
+    want = plain(*args, **geo)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert wrapper.launches == before + (splits is None)
     assert got.shape == want.shape == (wave.shape[0], geo["n_frames"], 128)
     err = (got - want).abs()
     if p.fast:  # the same bf16 roundings; only the summation order differs
         assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-6
         # nearer the plain version than the same inputs without the
         # magnitude rounded to bf16, which a kernel skipping it would match
-        unrounded = ops.logmel_f32_plain(wave, p.w_cos, p.w_sin, p.mel_w, **geo)
+        unrounded = ops.logmel_f32_plain(*args, **geo)
         assert err.mean().item() < (got - unrounded).abs().mean().item()
     else:
         assert err.max().item() <= 1e-4
+    return got
 
 
 @pytest.mark.parametrize("name,precision,wide", CASES)
@@ -130,3 +135,65 @@ def test_kernel_rejects_weights_on_another_device():
     with pytest.raises(ValueError):
         ops.logmel_f32(_wave(p, 1), p.w_cos.cpu(), p.w_sin, p.mel_w,
                        **p.geometry(p.clip_samples))
+
+
+# logmel_f32's two branches: its plan's choice (one frequency slice at
+# B = 128, several at B = 1 and 8), one slice, and 7 slices, which split the
+# 16 chunks of 64 frequencies (kf = 1024) unevenly (2 or 3 a slice).
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("batch", [1, 8, 128])
+@pytest.mark.parametrize("splits", [None, 1, 7])
+def test_f32_kernel_plan_branches(wide, batch, splits):
+    p = _params("HIGHEST", wide)
+    geo = p.geometry(p.clip_samples)
+    frames, planned = ops.f32_device_plan(batch, geo["n_frames"], geo["hop"], p.ksup,
+                                          p.w_cos.shape[1], "cuda")
+    assert frames == 128 and (planned == 1) == (batch == 128)
+    _held_to_plain("logmel_f32", p, _wave(p, batch), geo, splits=splits)
+
+
+@pytest.mark.parametrize("splits", [1, 5])
+@pytest.mark.parametrize("batch,n_frames,hop,off", EDGE_CASES)
+def test_f32_kernel_edge_cases(batch, n_frames, hop, off, splits):
+    p = _params("HIGHEST")
+    geo = p.geometry(p.clip_samples)
+    if hop is not None:
+        geo.update(hop=hop, n_frames=1 + p.clip_samples // hop)
+    if n_frames is not None:
+        geo["n_frames"] = n_frames
+    if off is not None:
+        geo["off"] = off
+    _held_to_plain("logmel_f32", p, _wave(p, batch), geo, splits=splits)
+
+
+# Hops whose span of 128 frames overflows shared memory: the float32
+# kernel's blocks take fewer frames (64 at 331, 32 at 700, 8 at 2001 at the
+# wide support).
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("hop", WIDE_HOPS)
+def test_f32_kernel_wide_hops(wide, hop):
+    p = _params("HIGHEST", wide)
+    geo = p.geometry(p.clip_samples)
+    geo.update(hop=hop, n_frames=1 + p.clip_samples // hop)
+    frames, _ = ops.f32_device_plan(2, geo["n_frames"], hop, p.ksup, p.w_cos.shape[1], "cuda")
+    assert frames == ops.f32_frames_per_block(hop, p.ksup) < 128
+    _held_to_plain("logmel_f32", p, _wave(p, 2), geo)
+
+
+@pytest.mark.parametrize("batch", [8, 128])
+def test_f32_kernel_is_deterministic(batch):
+    """The frequency slices are added in a fixed order, without atomics."""
+    p = _params("HIGHEST")
+    args, geo = (_wave(p, batch), p.w_cos, p.w_sin, p.mel_w), p.geometry(p.clip_samples)
+    first = ops.logmel_f32(*args, **geo)
+    assert torch.equal(first, ops.logmel_f32(*args, **geo))
+
+
+def test_frames_per_block_halve_as_the_hop_widens():
+    """Both kernels' blocks take 128 frames, halved while a wide hop's span
+    overflows shared memory; the main paths' hop (120) keeps 128."""
+    for frames_of in (ops.f32_frames_per_block, ops.tc_frames_per_block):
+        for ksup in (256, 2048):
+            got = [frames_of(hop, ksup) for hop in (120, 331, 700, 2001, 20000)]
+            assert got[0] == 128 and got[-1] < got[1] <= 128, (frames_of.__name__, ksup, got)
+            assert all(a >= b and b & (b - 1) == 0 for a, b in zip(got, got[1:]))

@@ -94,7 +94,9 @@ def test_flagship_support_and_weights():
     assert p.support == (905, 1144)
     assert (p.s0a, p.s1a, p.ksup) == (896, 1152, 256)
     assert (p.hop, p.off, p.clip_samples) == (120, -128, 30695)
-    assert tuple(p.w_cos.shape) == (256, 1152) and tuple(p.mel_w.shape) == (1152, 128)
+    # the DC bin feeds no mel bin: the basis holds frequencies 1..1024
+    assert p.freqs == (1, 1025)
+    assert tuple(p.w_cos.shape) == (256, 1024) and tuple(p.mel_w.shape) == (1024, 128)
     assert p.geometry(p.clip_samples)["n_frames"] == 256
 
 
