@@ -11,17 +11,19 @@ Semantics preserved:
   * strict key checking on merge (typo in a YAML raises ``KeyError``)
   * type coercion on merge mirroring yacs ``_check_and_coerce_cfg_value_type``
     (list<->tuple are interchangeable; str values from CLI are literal-eval'd)
-  * ``clone()`` deep-copies; ``dump()`` serialises to YAML text
+  * ``clone()`` deep-copies; ``dump()`` serialises to YAML text,
+    ``to_json()`` to JSON text (what ``train`` logs and checkpoints store)
 
-``yaml`` is imported only by ``dump`` and ``merge_from_file``: the slice's
-entry points never read YAML, and PyYAML is not installed everywhere the
-port runs.
+``yaml`` is imported only by ``dump`` and ``merge_from_file``: the port's
+entry points never read or write YAML, and PyYAML is not installed
+everywhere the port runs.
 """
 
 from __future__ import annotations
 
 import ast
 import copy
+import json
 from typing import Any, Dict, List
 
 _VALID_TYPES = (tuple, list, str, int, float, bool, type(None))
@@ -67,6 +69,10 @@ class CfgNode(dict):
         for k, v in self.items():
             out[k] = v._to_plain() if isinstance(v, CfgNode) else v
         return out
+
+    def to_json(self) -> str:
+        """The tree as JSON text (tuples become lists); needs no ``yaml``."""
+        return json.dumps(self._to_plain(), indent=1, sort_keys=True)
 
     def dump(self, **kwargs) -> str:
         import yaml

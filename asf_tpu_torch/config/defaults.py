@@ -1,9 +1,11 @@
 """Default config tree of the PyTorch port.
 
-The nodes the eval and train slices read, copied key-for-key from
+The nodes the eval and train slices, the VGG-Sound data path and
+``train(cfg)`` read, copied key-for-key from
 ``asf_tpu/config/defaults.py`` so that YAMLs written for the JAX package
 merge unchanged, plus a ``GPU`` node: the counterparts of
-``TPU.COMPUTE_DTYPE``, ``TPU.DSP_PRECISION`` and ``TPU.SPEC_AUGMENT``. There is no kernel on/off
+``TPU.COMPUTE_DTYPE``, ``TPU.DSP_PRECISION``, ``TPU.SPEC_AUGMENT``,
+``TPU.INT16_TRANSFER`` and ``TPU.PREFETCH_DEPTH``. There is no kernel on/off
 switch: on CUDA tensors the hand-written kernels always run, on CPU tensors
 their plain PyTorch versions do.
 """
@@ -26,11 +28,28 @@ _C.BN.NUM_SPLITS = 1
 _C.BN.NUM_SYNC_DEVICES = 1
 
 # ---------------------------------------------------------------------------
-# Training options (the keys the train step reads)
+# Training options
 # ---------------------------------------------------------------------------
 _C.TRAIN = CfgNode()
+_C.TRAIN.ENABLE = True
 _C.TRAIN.DATASET = "vggsound"
 _C.TRAIN.BATCH_SIZE = 64
+_C.TRAIN.EVAL_PERIOD = 10
+_C.TRAIN.CHECKPOINT_PERIOD = 10
+_C.TRAIN.AUTO_RESUME = True
+_C.TRAIN.CHECKPOINT_FILE_PATH = ""
+_C.TRAIN.CHECKPOINT_EPOCH_RESET = False
+_C.TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN = ()
+
+# ---------------------------------------------------------------------------
+# Testing options (the keys the test split of the datasets and the test
+# checkpoint precedence read)
+# ---------------------------------------------------------------------------
+_C.TEST = CfgNode()
+_C.TEST.DATASET = "vggsound"
+_C.TEST.BATCH_SIZE = 8
+_C.TEST.CHECKPOINT_FILE_PATH = ""
+_C.TEST.NUM_ENSEMBLE_VIEWS = 10
 
 # ---------------------------------------------------------------------------
 # ResNet options
@@ -104,6 +123,22 @@ _C.AUDIO_DATA.SPECTROGRAM_OVERLAP = 1.0
 _C.AUDIO_DATA.MAX_NB_SPECTROGRAMS = 15
 
 # ---------------------------------------------------------------------------
+# VGG-Sound dataset options
+# ---------------------------------------------------------------------------
+_C.VGGSOUND = CfgNode()
+_C.VGGSOUND.AUDIO_DATA_DIR = ""
+_C.VGGSOUND.ANNOTATIONS_DIR = ""
+_C.VGGSOUND.TRAIN_LIST = "train.pkl"
+_C.VGGSOUND.VAL_LIST = "test.pkl"
+_C.VGGSOUND.TEST_LIST = "test.pkl"
+
+# ---------------------------------------------------------------------------
+# Data loader options
+# ---------------------------------------------------------------------------
+_C.DATA_LOADER = CfgNode()
+_C.DATA_LOADER.NUM_WORKERS = 8
+
+# ---------------------------------------------------------------------------
 # Optimizer options
 # ---------------------------------------------------------------------------
 _C.SOLVER = CfgNode()
@@ -126,6 +161,16 @@ _C.SOLVER.OPTIMIZING_METHOD = "sgd"
 _C.SOLVER.BASE_LR_SCALE_NUM_SHARDS = False
 
 # ---------------------------------------------------------------------------
+# Misc options
+# ---------------------------------------------------------------------------
+_C.NUM_SHARDS = 1
+_C.SHARD_ID = 0
+_C.OUTPUT_DIR = "./tmp"
+_C.RNG_SEED = 1
+_C.LOG_PERIOD = 10
+_C.LOG_MODEL_INFO = True
+
+# ---------------------------------------------------------------------------
 # GPU options of the port (counterparts of the JAX package's TPU node)
 # ---------------------------------------------------------------------------
 _C.GPU = CfgNode()
@@ -138,6 +183,14 @@ _C.GPU.DSP_PRECISION = "HIGHEST"
 # SpecAugment (time warp, 2 frequency and 2 time masks) on every training
 # spectrogram, as the reference does; False takes it out of the train step.
 _C.GPU.SPEC_AUGMENT = True
+# Ship 16-bit-PCM waveforms to the card as raw int16; the input pipeline
+# applies the /32768 scale (bit-identical to the host conversion) and the
+# copy moves half the bytes. Applies to wav-backed datasets.
+_C.GPU.INT16_TRANSFER = True
+# Batches copied to the card ahead of the step, on a side CUDA stream from
+# pinned memory (data/prefetch.py); 0 loads and copies each batch when the
+# loop asks for it.
+_C.GPU.PREFETCH_DEPTH = 2
 
 
 def _assert_and_infer_cfg(cfg: CfgNode) -> CfgNode:
@@ -147,6 +200,9 @@ def _assert_and_infer_cfg(cfg: CfgNode) -> CfgNode:
     assert cfg.RESNET.NUM_GROUPS > 0
     assert cfg.RESNET.WIDTH_PER_GROUP > 0
     assert cfg.RESNET.WIDTH_PER_GROUP % cfg.RESNET.NUM_GROUPS == 0
+    if cfg.SOLVER.BASE_LR_SCALE_NUM_SHARDS:
+        cfg.SOLVER.BASE_LR *= cfg.NUM_SHARDS
+    assert cfg.SHARD_ID < cfg.NUM_SHARDS
     return cfg
 
 

@@ -1,0 +1,160 @@
+"""VGG-Sound dataset: one ``.wav`` file a clip.
+
+Counterpart of ``asf_tpu/data/vggsound.py:23-310`` for the train, val and
+test splits. The test split holds ``TEST.NUM_ENSEMBLE_VIEWS`` records a clip,
+each taking its own evenly spaced window. Wav files are decoded with
+``scipy.io.wavfile``, int16 scaled by 1/32768 (librosa's reading of 16-bit
+PCM), or kept as raw int16 for the card (``GPU.INT16_TRANSFER``), decided
+for the whole dataset by ``_probe_int16``. A file shorter than a clip is
+zero-padded and its ``n_valid`` says how many samples are real.
+
+The annotation pickle is read with ``pickle.load``, not pandas: a pickled
+DataFrame (which pandas must be installed to unpickle) gives its rows
+through ``to_dict("records")``, a list of dicts is taken as it is. The JAX
+package's device-store protocol (``get_ref``, ``get_refs_batch``,
+``device_store_table``) is not ported.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+
+import numpy as np
+
+from ..utils.logging import get_logger
+from .build import register_dataset
+from .sampling import get_start_end_idx, item_rng
+
+logger = get_logger(__name__)
+
+
+def load_wav(path: str, keep_int16: bool = False) -> tuple[np.ndarray, int]:
+    from scipy.io import wavfile
+
+    sr, data = wavfile.read(path)
+    if data.dtype == np.int16:
+        if keep_int16 and data.ndim == 1:
+            return data, sr
+        data = data.astype(np.float32) / 32768.0
+    elif data.dtype == np.int32:
+        data = data.astype(np.float32) / 2147483648.0
+    elif data.dtype == np.uint8:
+        data = (data.astype(np.float32) - 128.0) / 128.0
+    else:
+        data = data.astype(np.float32)
+    if data.ndim > 1:  # the reference's audio is mono; average the channels
+        data = data.mean(axis=1)
+    return data, sr
+
+
+def read_annotations(path: str) -> list[dict]:
+    """The rows of an annotation pickle as dicts: a DataFrame's records, or a
+    list of dicts as it is."""
+    with open(path, "rb") as f:
+        obj = pickle.load(f)
+    if callable(getattr(obj, "to_dict", None)) and hasattr(obj, "columns"):
+        return obj.to_dict("records")
+    if isinstance(obj, list) and all(isinstance(row, dict) for row in obj):
+        return obj
+    raise TypeError(f"{path}: annotations must be a DataFrame or a list of dicts, "
+                    f"not {type(obj).__name__}")
+
+
+@register_dataset("Vggsound")
+class Vggsound:
+    def __init__(self, cfg, mode: str):
+        assert mode in ["train", "val", "test"], f"Split '{mode}' not supported for VGG-Sound"
+        self.cfg = cfg
+        self.mode = mode
+        self._num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS if mode == "test" else 1
+        self.clip_size = int(round(cfg.AUDIO_DATA.SAMPLING_RATE * cfg.AUDIO_DATA.CLIP_SECS))
+        self.clip_samples = self.clip_size - 1
+        self.int16 = bool(cfg.GPU.INT16_TRANSFER)
+        self._epoch = 0
+        self._construct_loader()
+
+    def set_epoch(self, epoch: int):
+        self._epoch = int(epoch)
+
+    def _construct_loader(self):
+        c = self.cfg.VGGSOUND
+        name = {"train": c.TRAIN_LIST, "val": c.VAL_LIST, "test": c.TEST_LIST}[self.mode]
+        path = os.path.join(c.ANNOTATIONS_DIR, name)
+        assert os.path.exists(path), f"{path} dir not found"
+        self._audio_records = []
+        self._temporal_idx = []
+        for row in read_annotations(path):
+            for idx in range(self._num_clips):
+                self._audio_records.append(row)
+                self._temporal_idx.append(idx)
+        assert len(self._audio_records) > 0, (
+            f"Failed to load VGG-Sound split {self.mode} from {path}"
+        )
+        logger.info("Constructed Vggsound %s (size %d)", self.mode, len(self._audio_records))
+        if self.int16:
+            self._probe_int16()
+
+    def _probe_int16(self):
+        """Decide the int16 path for the whole dataset from up to 8 files:
+        any file that is not mono int16 PCM turns it off, so that every
+        batch has one dtype (``collate`` still rescues a mixed batch)."""
+        from scipy.io import wavfile
+
+        seen, probed = set(), 0
+        for rec in self._audio_records:
+            if probed >= 8:
+                break
+            name = self._wav_name(rec)
+            if name in seen:
+                continue
+            seen.add(name)
+            try:
+                _, data = wavfile.read(os.path.join(self.cfg.VGGSOUND.AUDIO_DATA_DIR, name),
+                                       mmap=True)
+            except (FileNotFoundError, ValueError):
+                continue  # __getitem__ raises the real IO error
+            probed += 1
+            if data.dtype != np.int16 or data.ndim != 1:
+                logger.warning(
+                    "GPU.INT16_TRANSFER disabled for Vggsound %s: %s is %s/%dD "
+                    "(need mono int16 PCM dataset-wide)",
+                    self.mode, name, data.dtype, data.ndim,
+                )
+                self.int16 = False
+                return
+
+    @staticmethod
+    def _wav_name(record) -> str:
+        return record["video"][:-4] + ".wav"
+
+    def __getitem__(self, index: int):
+        record = self._audio_records[index]
+        tsi = -1 if self.mode in ["train", "val"] else self._temporal_idx[index]
+        path = os.path.join(self.cfg.VGGSOUND.AUDIO_DATA_DIR, self._wav_name(record))
+        samples, sr = load_wav(path, keep_int16=self.int16)
+        assert sr == self.cfg.AUDIO_DATA.SAMPLING_RATE, (
+            f"Audio sampling rate ({sr}) does not match target "
+            f"({self.cfg.AUDIO_DATA.SAMPLING_RATE})"
+        )
+        if len(samples) < self.clip_size:
+            clip = samples
+        else:
+            start, end = get_start_end_idx(
+                len(samples), self.clip_size, tsi, self.cfg.TEST.NUM_ENSEMBLE_VIEWS,
+                rng=item_rng(self.cfg.RNG_SEED, self._epoch, index),
+            )
+            clip = samples[int(start) : int(end)]
+        wave = np.zeros(self.clip_samples, samples.dtype)
+        n = min(len(clip), self.clip_samples)
+        wave[:n] = clip[:n]
+        return {
+            "waveform": wave,
+            "n_valid": np.int32(n),
+            "label": {"class_id": record["class_id"]},
+            "index": index,
+            "metadata": {},
+        }
+
+    def __len__(self):
+        return len(self._audio_records)

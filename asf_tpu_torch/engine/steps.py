@@ -2,7 +2,8 @@
 
 Counterparts of ``asf_tpu/engine/steps.py``: ``make_loss_fn`` (:146-184),
 ``make_device_metrics`` (:202-236), ``_make_step_core``/``make_train_step``
-(:279-351) and ``init_state`` (:505-531). The single-task and verb/noun
+(:279-351), ``make_eval_step`` (:419-432) and ``init_state`` (:505-531).
+The single-task and verb/noun
 branches are ported; the state head's come with that head. The JAX
 package's scanned K-step dispatch (:354-416) exists for XLA dispatch costs
 and is not ported; its ``WANDB`` watch histograms (:315-335) come with the
@@ -143,3 +144,17 @@ def make_train_step(cfg, device):
 
     train_step.pipeline = pipeline
     return train_step
+
+
+def make_eval_step(cfg, device):
+    """``eval_step(model, batch) -> probabilities``: the input pipeline
+    without augmentation, then the model in eval mode (softmax, then the
+    mean over positions), under ``torch.inference_mode()``."""
+    pipeline = make_input_pipeline(cfg, device)
+
+    @torch.inference_mode()
+    def eval_step(model: nn.Module, batch: dict):
+        model.eval()
+        return model(pipeline(batch["waveform"], batch["n_valid"], train=False))
+
+    return eval_step

@@ -1,0 +1,201 @@
+"""The training loop: ``train(cfg)``.
+
+Counterpart of ``asf_tpu/engine/train_loop.py:48-527``: seed, build the
+model and optimizer, resume or warm-start (``checkpoint/manager.py``), then
+for each epoch: reshuffle, ``train_epoch``, precise BN, a periodic
+checkpoint, and every ``EVAL_PERIOD`` epochs and at the last a val epoch,
+with ``checkpoint_best`` saved when its top-1 error is the lowest yet.
+
+The loop never waits for the card within an epoch. Each step's loss and
+top-k errors stay on the card; once every ``LOG_PERIOD`` steps they are
+stacked and queued as one copy into pinned host memory with an event, and
+the meter takes them (and the NaN check reads them) at a later flush once
+that event has completed, as the JAX loop's metrics thread does (:95-139).
+Each step's host times are taken at its ``iter_toc`` and logged with its
+numbers; the flush itself falls between one iteration's ``iter_toc`` and
+the next one's ``iter_tic``. The LR of each step is a host float from
+``utils/lr_policy``.
+
+Not ported here: the observers (TensorBoard, W&B), the AOT warm-up, the
+device store, the state-head alerts, the profiler window and the K-step
+dispatch.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..checkpoint import manager as cu
+from ..data.loader import construct_loader, shuffle_dataset
+from ..data.prefetch import prefetch
+from ..models import build_model
+from ..utils import lr_policy
+from ..utils.logging import get_logger, setup_logging
+from ..utils.misc import log_model_info
+from ..utils.torch_setup import disable_tf32, resolve_device
+from .eval_loop import build_val_meter, eval_epoch
+from .meters import TrainMeter
+from .steps import init_state, is_multitask, make_eval_step, make_train_step
+
+logger = get_logger(__name__)
+
+
+def check_nan_losses(loss: float):
+    if math.isnan(loss):
+        raise RuntimeError(f"ERROR: Got NaN losses {loss}")
+
+
+def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, device):
+    data_size = len(train_loader)
+    log_period = max(1, cfg.LOG_PERIOD)
+    cuda = torch.device(device).type == "cuda"
+    pending = []  # (iteration, lr, rows, host times, (loss, top1_err, top5_err) on the card)
+    fetches = []  # ([(iteration, lr, rows, host times)], host tensor, event or None)
+
+    def apply_ready(block: bool):
+        while fetches and (block or fetches[0][2] is None or fetches[0][2].query()):
+            metas, host, event = fetches.pop(0)
+            if event is not None:
+                event.synchronize()
+            for (it, lr, rows, times), (loss, top1, top5) in zip(metas, host.tolist()):
+                check_nan_losses(loss)
+                train_meter.update_stats(top1, top5, loss, lr, rows)
+                train_meter.log_iter_stats(cur_epoch, it, times)
+
+    def flush(block: bool = False):
+        if pending:
+            host = torch.stack([v for *_, v in pending]).to("cpu", non_blocking=True)
+            event = None
+            if cuda:
+                event = torch.cuda.Event()
+                event.record()
+            fetches.append(([tuple(m) for *m, _ in pending], host, event))
+            pending.clear()
+        apply_ready(block)
+
+    src = prefetch(train_loader, cfg, device)
+    try:
+        train_meter.iter_tic()
+        for cur_iter, batch in enumerate(src):
+            train_meter.data_toc()
+            lr = lr_policy.get_lr_at_epoch(cfg, cur_epoch + float(cur_iter) / data_size)
+            parts, stats = train_step(state, batch, lr)
+            values = torch.stack([parts["loss"], stats["top1_err"], stats["top5_err"]])
+            train_meter.iter_toc()
+            pending.append((cur_iter, lr, batch["waveform"].shape[0], train_meter.iter_times(),
+                            values))
+            if len(pending) >= log_period:
+                flush()
+            train_meter.iter_tic()
+        flush(block=True)
+    finally:
+        src.close()
+    train_meter.log_epoch_stats(cur_epoch)
+    train_meter.reset()
+
+
+@torch.no_grad()
+def precise_bn(cfg, state, loader, pipeline, device, num_iters: int) -> None:
+    """Recomputes every BN's running statistics as the mean of their values
+    over ``num_iters`` batches of ``loader`` (forward in train mode,
+    SpecAugment off): with ``momentum=None`` after ``reset_running_stats()``
+    PyTorch keeps the cumulative mean, which is what the JAX package's
+    momentum-1 average computes (:284-342). ``BN.FREEZE`` is lifted for the
+    pass; the momenta and the freeze are restored after it."""
+    if num_iters <= 0:
+        return
+    model = state.model
+    bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+    saved = [(bn.momentum, getattr(bn, "stats_frozen", False)) for bn in bns]
+    for bn in bns:
+        bn.reset_running_stats()
+        bn.momentum = None
+        bn.stats_frozen = False
+    model.train()
+    src = prefetch(loader, cfg, device)
+    try:
+        for batch in itertools.islice(src, num_iters):
+            model(pipeline(batch["waveform"], batch["n_valid"], train=False))
+    finally:
+        src.close()
+        for bn, (momentum, frozen) in zip(bns, saved):
+            bn.momentum, bn.stats_frozen = momentum, frozen
+
+
+def build_train_meter(cfg, epoch_iters: int):
+    if is_multitask(cfg):
+        raise NotImplementedError("the verb/noun train meter comes with the EPIC slice")
+    return TrainMeter(epoch_iters, cfg)
+
+
+def _epoch_seed(seed: int, epoch: int) -> int:
+    return int(np.random.SeedSequence([int(seed), int(epoch)]).generate_state(1)[0])
+
+
+def train(cfg, device=None):
+    """Trains the model of ``cfg`` on ``TRAIN.DATASET``; returns the final
+    ``steps.TrainState``.
+
+    Runs on the current CUDA device unless ``device="cpu"``; raises when
+    CUDA is absent and no device was given, and when ``NUM_SHARDS > 1``
+    (data parallel across processes is not ported). Weights are drawn from
+    ``torch.Generator().manual_seed(cfg.RNG_SEED)``, SpecAugment's generator
+    is seeded with ``RNG_SEED``, and the global generators (the head's
+    dropout) are seeded from ``(RNG_SEED, epoch)`` at each epoch, so that a
+    resumed run repeats the epochs of an uninterrupted one.
+    """
+    if cfg.NUM_SHARDS > 1:
+        # The loader would split the data by SHARD_ID and the LR would scale
+        # by NUM_SHARDS, but there is no process group and no gradient
+        # all-reduce yet: each process would train alone on its share.
+        raise NotImplementedError(
+            f"NUM_SHARDS = {cfg.NUM_SHARDS}: train(cfg) runs on one device")
+    device = resolve_device(device)
+    disable_tf32()
+    setup_logging(cfg.OUTPUT_DIR)
+    np.random.seed(cfg.RNG_SEED)
+    logger.info("Train with config:\n%s", cfg.to_json())
+
+    model = build_model(cfg, device, torch.Generator().manual_seed(cfg.RNG_SEED))
+    state = init_state(cfg, model)
+    state.generator.manual_seed(cfg.RNG_SEED)
+    if cfg.LOG_MODEL_INFO:
+        log_model_info(model)
+    start_epoch = cu.load_train_checkpoint(cfg, state)
+
+    train_loader = construct_loader(cfg, "train")
+    val_loader = construct_loader(cfg, "val")
+    train_step = make_train_step(cfg, device)
+    eval_step = make_eval_step(cfg, device)
+    train_meter = build_train_meter(cfg, len(train_loader))
+    val_meter = build_val_meter(cfg, len(val_loader))
+
+    logger.info("Start epoch: %d", start_epoch + 1)
+    try:
+        for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
+            shuffle_dataset(train_loader, cur_epoch)
+            torch.manual_seed(_epoch_seed(cfg.RNG_SEED, cur_epoch))
+            train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, device)
+            if cfg.BN.USE_PRECISE_STATS:
+                precise_bn(cfg, state, train_loader, train_step.pipeline, device,
+                           min(cfg.BN.NUM_BATCHES_PRECISE, len(train_loader)))
+            if cu.is_checkpoint_epoch(cfg, cur_epoch):
+                cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch, cfg)
+            if (cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0 or (
+                cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH
+            ):
+                is_best, top1 = eval_epoch(val_loader, model, eval_step, val_meter, cur_epoch,
+                                           cfg, device)
+                if is_best:
+                    cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch, cfg,
+                                       name="checkpoint_best")
+                    logger.info("Saved best checkpoint at epoch %d: %s", cur_epoch + 1, top1)
+    finally:
+        train_loader.close()
+        val_loader.close()
+    return state

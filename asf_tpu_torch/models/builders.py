@@ -16,6 +16,7 @@ projection normal(0, ``MODEL.FC_INIT_STD``) with a zero bias
 
 from __future__ import annotations
 
+import csv
 import math
 
 import torch
@@ -181,8 +182,7 @@ def build_model(cfg, device=None, generator: torch.Generator | None = None) -> n
 def _maybe_append_state_classes(cfg):
     """Append len(PDDL attributes) to NUM_CLASSES (the upstream state head)."""
     if isinstance(cfg.MODEL.PDDL_ATTRIBUTES, str) and cfg.MODEL.PDDL_ATTRIBUTES.endswith(".csv"):
-        import pandas as pd
-
-        attrs = pd.read_csv(cfg.MODEL.PDDL_ATTRIBUTES)["attribute"].to_list()
+        with open(cfg.MODEL.PDDL_ATTRIBUTES, newline="") as f:  # no pandas on the card
+            attrs = [row["attribute"] for row in csv.DictReader(f)]
         if len(cfg.MODEL.NUM_CLASSES) == 2:
             cfg.MODEL.NUM_CLASSES.append(len(attrs))

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Five phases, each of which raises on a
+Run from the root of a checkout. Six phases, each of which raises on a
 failed check (the script then exits non-zero and prints no result):
 
 1. Device and build: needs a CUDA device; prints the card's name and power
@@ -54,7 +54,23 @@ failed check (the script then exits non-zero and prints no result):
    optimizer must hold the policy's LR. One step from a copy of each state,
    SpecAugment off, must give the loss of the same step with the plain
    front end. Then ms per step, clips/s and peak memory at batch 64.
-5. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
+5. ``train(cfg)``: the port's training entry point on a synthetic VGG-Sound
+   set written into a temporary directory (mono int16 wav files at 24 kHz,
+   2.0 s each, 192 train and 96 val, 309 classes; list-of-dicts annotation
+   pickles), the flagship SlowFast-R50 at B = 64 with the bf16 front end,
+   precise BN over 2 batches and a val epoch and checkpoint every epoch.
+   Run 1 trains one epoch; run 2, with two epochs in the same output
+   directory, must auto-resume at epoch 2 and step 3 and end at step 6.
+   ``logmel_bf16`` must launch exactly 7 times a run (3 train, 2 precise
+   BN, 2 val batches of 64 and 32), the model must live on the card, every
+   logged loss must be finite and the val top-1 error in [0, 100], the
+   checkpoints of epochs 1 and 2 and the best must exist, epoch 1's must
+   load into a fresh model equal to run 1's bit for bit, and the first
+   prefetched batch must equal its host batch bit for bit (int16 kept).
+   Prints ms per train and val iteration and the data wait (the host
+   times in the loop's ``json_stats`` records), epoch wall seconds, and
+   ``train_entry``'s ms per step from phase 4 beside them.
+6. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
    both above the card's float32 CUDA-core peak at their main-path shapes
    (``logmel_bf16`` flagship at B = 64 and 128, ``logmel_bf16_wide`` at
    B = 64); no ``HGMMA`` and no ``HMMA`` in the SASS of ``logmel_f32``'s
@@ -62,7 +78,7 @@ failed check (the script then exits non-zero and prints no result):
    slices, so that a run against an older tree of the kernels (a
    parent-versus-change comparison) still prints all its times before it
    fails.
-6. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+7. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -75,6 +91,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -106,11 +123,12 @@ TENSOR_CORE_ROWS = [("logmel_bf16", False, 64), ("logmel_bf16", False, 128),
                     ("logmel_bf16_wide", True, 64)]
 FLUSH_BYTES = 512 * 2**20  # written before each cold launch: ten times the L2
 # (kernel, precision, wide window, batches): the main paths' shapes (eval:
-# f32 at 8, bf16 at 128; train: bf16 at 64, flagship and wide), and the
-# 2048-tap supports of logmel_f32 and logmel_bf16 at 8.
+# f32 at 8, bf16 at 128; train: bf16 at 64, flagship and wide; train(cfg):
+# bf16 at 64 and at 32, its ragged last val batch), and the 2048-tap supports
+# of logmel_f32 and logmel_bf16 at 8.
 KERNEL_CASES = [
     ("logmel_f32", "HIGHEST", False, (8, 128)),
-    ("logmel_bf16", "BFLOAT16", False, (8, 64, 128)),
+    ("logmel_bf16", "BFLOAT16", False, (8, 32, 64, 128)),
     ("logmel_f32", "HIGHEST", True, (8,)),
     ("logmel_bf16", "BFLOAT16", True, (8,)),
     ("logmel_bf16_wide", "BFLOAT16", True, (8, 64)),
@@ -145,6 +163,10 @@ CONTROL = 0.01
 # the logits; the mean over 64 clips keeps the loss within 1e-2.
 LOSS_TOL = 1e-2
 TRAIN_BATCH = 64
+# The synthetic VGG-Sound set of phase 5: 3 train batches of 64, val 64 + 32.
+TRAIN_FILES, VAL_FILES, FILE_SECS = 192, 96, 2.0
+# logmel_bf16 launches of one train(cfg) epoch: 3 train + 2 precise-BN + 2 val batches.
+EPOCH_LAUNCHES = 7
 
 
 def check(ok: bool, msg: str) -> None:
@@ -410,7 +432,7 @@ def f32_branches(tag: str, card: str, args: tuple, geo: dict, got: torch.Tensor,
 
 
 def check_instructions(card: str, sass: dict, kernels: dict) -> None:
-    """Phase 5: both bf16 kernels hold HGMMA and beat the float32 CUDA-core
+    """Phase 6: both bf16 kernels hold HGMMA and beat the float32 CUDA-core
     peak at their main-path shapes; logmel_f32's kernels hold no tensor-core
     instruction."""
     n_fns, hgmma, hmma = sass["logmel_f32"]
@@ -604,18 +626,165 @@ def train_run(card: str, label: str, cfg, n_steps: int, kernel: str) -> tuple[di
     return launches, timing
 
 
-def phase_train(card: str) -> dict:
+def phase_train(card: str) -> tuple[dict, dict]:
     from asf_tpu_torch.entry import flagship_cfg, wide_window
 
     torch.cuda.reset_peak_memory_stats()
-    launches = {}
+    launches, timing = {}, {}
     for label, cfg, n_steps, kernel in (("flagship", flagship_cfg(), 5, "logmel_bf16"),
                                         ("wide window", wide_window(flagship_cfg()), 3,
                                          "logmel_bf16_wide")):
-        counts, _ = train_run(card, label, cfg, n_steps, kernel)
-        launches[label] = counts
+        launches[label], timing[label] = train_run(card, label, cfg, n_steps, kernel)
     print(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"| {card}", flush=True)
+    return launches, timing
+
+
+def check_prefetch(cfg) -> None:
+    """The train loader's first batch through the prefetcher equals the same
+    batch read on the host, bit for bit and dtype for dtype."""
+    from asf_tpu_torch.data.loader import construct_loader, shuffle_dataset
+    from asf_tpu_torch.data.prefetch import prefetch
+
+    ld = construct_loader(cfg, "train")
+    try:
+        shuffle_dataset(ld, 0)
+        t0 = time.perf_counter()
+        host = next(iter(ld))
+        host_ms = (time.perf_counter() - t0) * 1e3
+        with prefetch(ld, cfg, "cuda") as src:
+            t0 = time.perf_counter()
+            dev = next(iter(src))
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            pairs = [(dev["waveform"], host["waveform"]), (dev["n_valid"], host["n_valid"]),
+                     (dev["labels"]["class_id"], host["labels"]["class_id"]),
+                     (dev["index"], host["index"])]
+            for got, want in pairs:
+                want = torch.from_numpy(want)
+                check(got.is_cuda and got.dtype == want.dtype and torch.equal(got.cpu(), want),
+                      f"prefetched {tuple(got.shape)} {got.dtype} differs from its host batch")
+    finally:
+        ld.close()
+    check(dev["waveform"].dtype == torch.int16, "the waveform left the host as "
+          f"{dev['waveform'].dtype}, not int16")
+    print(f"[train(cfg)] the first prefetched batch equals its host batch bit for bit "
+          f"(waveform {tuple(dev['waveform'].shape)} int16, labels int64); the host batch "
+          f"took {host_ms:.1f} ms (the loader's threads started), the first batch through a "
+          f"new prefetcher {first_ms:.1f} ms (read, collate, pin, copy)", flush=True)
+
+
+def phase_train_cfg(card: str, step_ms: float) -> dict:
+    """Phase 5: ``train(cfg)`` twice, the second resuming the first; returns
+    the launch counts of both runs together."""
+    from asf_tpu_torch.checkpoint import manager as cu
+    from asf_tpu_torch.engine import train
+    from asf_tpu_torch.entry import flagship_cfg
+    from asf_tpu_torch.models import build_model
+    from asf_tpu_torch.tools.loop_probe import StatsLog, write_vggsound
+
+    cfg = flagship_cfg()
+    cfg.GPU.DSP_PRECISION = "BFLOAT16"
+    cfg.TRAIN.BATCH_SIZE = TRAIN_BATCH
+    cfg.BN.USE_PRECISE_STATS = True
+    cfg.BN.NUM_BATCHES_PRECISE = 2
+    cfg.TRAIN.EVAL_PERIOD = cfg.TRAIN.CHECKPOINT_PERIOD = 1
+    cfg.LOG_PERIOD = 1
+    cfg.LOG_MODEL_INFO = False
+
+    stats = StatsLog()
+    stats.__enter__()
+    launches = {name: 0 for name in REPLACES}
+    walls = []  # per run: seconds in train(cfg), and from "Start epoch" to the train_epoch record
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            t0 = time.perf_counter()
+            write_vggsound(root, cfg, TRAIN_FILES, VAL_FILES, FILE_SECS)
+            cfg.OUTPUT_DIR = os.path.join(root, "out")
+            print(f"[train(cfg)] wrote {TRAIN_FILES} + {VAL_FILES} wav files of {FILE_SECS} s in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            check_prefetch(cfg)
+            ckpts = os.path.join(cfg.OUTPUT_DIR, "checkpoints")
+            for run, max_epoch in ((1, 1), (2, 2)):
+                cfg.SOLVER.MAX_EPOCH = max_epoch
+                since = len(stats.records)
+                torch.cuda.synchronize()
+                zero_launches()
+                t0 = time.perf_counter()
+                state = train(cfg)
+                torch.cuda.synchronize()
+                counts = read_launches()
+                wall = time.perf_counter() - t0
+                for name, n in counts.items():
+                    launches[name] += n
+                iters = stats.of("train_iter", since)
+                epochs = stats.of("train_epoch", since)
+                check(len(epochs) == 1, f"run {run} logged {len(epochs)} train epochs")
+                # The epoch's record follows the flush that waits for its last step.
+                walls.append((wall, epochs[0]["_at"] - stats.starts[-1]))
+                print(f"[train(cfg)] run {run}: MAX_EPOCH {max_epoch}, train_iter records "
+                      f"{[(r['epoch'], r['iter']) for r in iters]}, last step {state.step}, "
+                      f"launches {counts}, {wall:.1f} s in train(cfg)", flush=True)
+                want = {name: (EPOCH_LAUNCHES if name == "logmel_bf16" else 0) for name in REPLACES}
+                check(counts == want, f"run {run}: launches {counts}, expected {want}")
+                check(all(p.is_cuda for p in state.model.parameters()),
+                      f"run {run}: parameters off the card")
+                # Run 2 resumes at epoch 2: its 3 steps are that epoch's and end at step 6.
+                check([(r["epoch"], r["iter"]) for r in iters]
+                      == [(f"{run}/{max_epoch}", f"{i}/3") for i in (1, 2, 3)]
+                      and state.step == 3 * run,
+                      f"run {run} logged {iters} and ended at step {state.step}")
+                if run == 1:
+                    fresh = build_model(cfg, "cuda")
+                    fresh.load_state_dict(cu.load_checkpoint(
+                        os.path.join(ckpts, "checkpoint_epoch_00001.pyth"))["model_state"])
+                    want_sd = state.model.state_dict()
+                    differ = [k for k, v in fresh.state_dict().items()
+                              if not torch.equal(v, want_sd[k])]
+                    check(not differ, f"checkpoint_epoch_00001.pyth differs from run 1's model "
+                          f"in {len(differ)} tensors, e.g. {differ[:3]}")
+                    del fresh
+                del state
+            names = sorted(os.listdir(ckpts))
+            for name in ("checkpoint_epoch_00001.pyth", "checkpoint_epoch_00002.pyth",
+                         "checkpoint_best.pyth"):
+                check(name in names, f"{name} missing from {names}")
+    finally:
+        stats.__exit__()
+
+    losses = [r["loss"] for r in stats.of("train_iter") + stats.of("train_epoch")]
+    check(len(losses) == 2 * (3 + 1) and all(math.isfinite(v) for v in losses),
+          f"logged losses {losses}")
+    vals = stats.of("val_epoch")
+    check(len(vals) == 2 and all(0.0 <= r["top1_err"] <= 100.0 for r in vals),
+          f"val records {vals}")
+    print(f"[train(cfg)] train_epoch {stats.of('train_epoch')}; val_epoch {vals}", flush=True)
+
+    def ms(values):
+        return statistics.median(values) * 1e3
+
+    # Host clock, taken at each iteration's iter_toc (no sync a step); the
+    # first iteration of each run fills the prefetch queue.
+    iters, viters = stats.of("train_iter"), stats.of("val_iter")
+    steady = [r for r in iters if not r["iter"].startswith("1/")]
+    it_ms, wait_ms = ms([r["dt"] for r in steady]), ms([r["dt_data"] for r in steady])
+    print(f"[train(cfg)] ms per train iteration {it_ms:.3f} (median of {len(steady)}, the "
+          f"first of each run left out; host clock, no sync a step), data wait {wait_ms:.3f} ms "
+          f"({wait_ms / it_ms:.3f} of it); every iteration (s, wait s): "
+          f"{[(round(r['dt'], 5), round(r['dt_data'], 5)) for r in iters]} | {card}", flush=True)
+    vsteady = [r for r in viters if not r["iter"].startswith("1/")]
+    print(f"[train(cfg)] ms per val iteration {ms([r['dt'] for r in vsteady]):.3f} (median of "
+          f"{len(vsteady)}: the ragged batch of 32), "
+          f"{ms([r['dt'] - r['dt_data'] for r in viters]):.3f} without the data wait (median of "
+          f"all {len(viters)}); every one (s, wait s): "
+          f"{[(round(r['dt'], 5), round(r['dt_data'], 5)) for r in viters]} | {card}", flush=True)
+    firsts = [r["dt"] for r in iters if r["iter"].startswith("1/")]
+    print(f"[train(cfg)] epoch wall seconds (from train's 'Start epoch' to its train_epoch "
+          f"record, which waits for the last step): {[round(e, 4) for _, e in walls]}; first "
+          f"iterations {[round(f, 4) for f in firsts]} s; seconds in train(cfg) "
+          f"{[round(w, 2) for w, _ in walls]}; train_entry at B={TRAIN_BATCH} (phase 4): "
+          f"{step_ms:.3f} ms per step; loop / train_entry {it_ms / step_ms:.3f} (3-step epochs: "
+          f"not a steady state) | {card}", flush=True)
     return launches
 
 
@@ -623,9 +792,11 @@ def main() -> None:
     card, sass = phase_device()
     kernels = phase_kernels(card)
     eval_launches, _ = phase_slice(card)
-    train_launches = phase_train(card)
+    train_launches, train_timing = phase_train(card)
+    loop_launches = phase_train_cfg(card, train_timing["flagship"]["ms"])
     check_instructions(card, sass, kernels)
-    paths = {"eval": eval_launches, **{f"train {k}": v for k, v in train_launches.items()}}
+    paths = {"eval": eval_launches, **{f"train {k}": v for k, v in train_launches.items()},
+             "train(cfg)": loop_launches}
     line = []
     for name, res in kernels.items():
         wide, batch = LINE_BATCH[name]

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card;
+the prefetcher's stream handling and ``train(cfg)``'s launches.
 
 Imports no JAX, so it runs on a machine with a GPU and no JAX:
 
@@ -8,11 +9,17 @@ Elsewhere every test here skips. The skip condition is a string, which
 pytest evaluates when each test runs, not when the module is imported.
 """
 
+import os
+import pickle
+
 import numpy as np
 import pytest
 import torch
+from scipy.io import wavfile
 
+from asf_tpu_torch.data.prefetch import Prefetcher
 from asf_tpu_torch.dsp.logmel import LogMelParams
+from asf_tpu_torch.engine import train
 from asf_tpu_torch.entry import flagship_cfg, wide_window
 from asf_tpu_torch.ops import logmel as ops
 from asf_tpu_torch.utils.torch_setup import disable_tf32
@@ -197,3 +204,79 @@ def test_frames_per_block_halve_as_the_hop_widens():
             got = [frames_of(hop, ksup) for hop in (120, 331, 700, 2001, 20000)]
             assert got[0] == 128 and got[-1] < got[1] <= 128, (frames_of.__name__, ksup, got)
             assert all(a >= b and b & (b - 1) == 0 for a, b in zip(got, got[1:]))
+
+
+def test_prefetch_delivers_the_host_batches_while_the_consumer_is_busy():
+    """Depth 2 over two epochs of 16 MB int16 batches. Each batch is cloned
+    on the consumer's stream, after a long kernel on every other one: a
+    missing stream wait reads a copy in flight, a missing ``record_stream``
+    lets a later copy land in memory a queued clone still reads."""
+    _prefetch_round_trip(depth=2)
+
+
+def test_prefetch_without_a_worker_delivers_the_host_batches():
+    """Depth 0 copies each batch on the same side stream when it is asked for."""
+    _prefetch_round_trip(depth=0)
+
+
+def _prefetch_round_trip(depth):
+    rng = np.random.default_rng(9)
+    host = [{"waveform": rng.integers(-2**15, 2**15, (256, 30695), dtype=np.int16),
+             "n_valid": rng.integers(1, 30695, 256).astype(np.int32),
+             "labels": {"class_id": rng.integers(0, 309, 256)}} for _ in range(6)]
+    for _ in range(2):
+        got = []
+        with Prefetcher(host, "cuda", depth=depth) as src:
+            for i, batch in enumerate(src):
+                if i % 2:
+                    torch.cuda._sleep(20_000_000)  # ~10 ms on the consumer's stream
+                got.append({"waveform": batch["waveform"].clone(),
+                            "n_valid": batch["n_valid"].clone(),
+                            "class_id": batch["labels"]["class_id"].clone()})
+                del batch
+        torch.cuda.synchronize()
+        assert len(got) == len(host)
+        for g, h in zip(got, host):
+            assert g["waveform"].dtype == torch.int16 and g["class_id"].dtype == torch.int64
+            assert torch.equal(g["waveform"].cpu(), torch.from_numpy(h["waveform"]))
+            assert torch.equal(g["n_valid"].cpu(), torch.from_numpy(h["n_valid"]))
+            assert torch.equal(g["class_id"].cpu(), torch.from_numpy(h["labels"]["class_id"]))
+
+
+@pytest.mark.parametrize("precision,kernel", [("BFLOAT16", "logmel_bf16"),
+                                              ("HIGHEST", "logmel_f32")])
+def test_train_cfg_counts_its_launches(tmp_path, precision, kernel):
+    """A tiny SlowFast at the flagship geometry, B = 4: 12 train clips (3
+    steps), precise BN over 2 batches, 6 val clips (4 + 2): 7 launches."""
+    cfg = flagship_cfg()
+    cfg.MODEL.NUM_CLASSES = [6]
+    cfg.RESNET.DEPTH = 26
+    cfg.RESNET.WIDTH_PER_GROUP = 8
+    cfg.RESNET.NUM_BLOCK_TEMP_KERNEL = [[1, 1], [1, 1], [1, 1], [1, 1]]
+    cfg.GPU.DSP_PRECISION = precision
+    cfg.TRAIN.BATCH_SIZE = 4
+    cfg.SOLVER.MAX_EPOCH = 1
+    cfg.BN.USE_PRECISE_STATS = True
+    cfg.BN.NUM_BATCHES_PRECISE = 2
+    cfg.LOG_MODEL_INFO = False
+    rng = np.random.default_rng(4)
+    for split, n in (("train", 12), ("val", 6)):
+        rows = []
+        for i in range(n):
+            wave = (rng.standard_normal(36000) * 3000).astype(np.int16)  # 1.5 s
+            wavfile.write(str(tmp_path / f"{split}{i}.wav"), 24000, wave)
+            rows.append({"video": f"{split}{i}.mp4", "class_id": i % 6})
+        with open(tmp_path / f"{split}.pkl", "wb") as f:
+            pickle.dump(rows, f)
+    cfg.VGGSOUND.AUDIO_DATA_DIR = cfg.VGGSOUND.ANNOTATIONS_DIR = str(tmp_path)
+    cfg.VGGSOUND.TRAIN_LIST, cfg.VGGSOUND.VAL_LIST = "train.pkl", "val.pkl"
+    cfg.OUTPUT_DIR = str(tmp_path / "out")
+    wrappers = [ops.logmel_f32, ops.logmel_bf16, ops.logmel_bf16_wide]
+    for w in wrappers:
+        w.launches = 0
+    state = train(cfg)
+    torch.cuda.synchronize()
+    assert {w.__name__: w.launches for w in wrappers} == {
+        w.__name__: (7 if w.__name__ == kernel else 0) for w in wrappers}
+    assert state.step == 3 and next(state.model.parameters()).is_cuda
+    assert os.path.exists(tmp_path / "out" / "checkpoints" / "checkpoint_epoch_00001.pyth")
