@@ -14,9 +14,9 @@ Semantics preserved:
   * ``clone()`` deep-copies; ``dump()`` serialises to YAML text,
     ``to_json()`` to JSON text (what ``train`` logs and checkpoints store)
 
-``yaml`` is imported only by ``dump`` and ``merge_from_file``: the port's
-entry points never read or write YAML, and PyYAML is not installed
-everywhere the port runs.
+PyYAML is not installed everywhere the port runs, so YAML goes through the
+port's own reader and writer, ``yaml_lite``, on every machine; a ``.json``
+file goes through ``json``.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ import ast
 import copy
 import json
 from typing import Any, Dict, List
+
+from . import yaml_lite
 
 _VALID_TYPES = (tuple, list, str, int, float, bool, type(None))
 
@@ -74,17 +76,18 @@ class CfgNode(dict):
         """The tree as JSON text (tuples become lists); needs no ``yaml``."""
         return json.dumps(self._to_plain(), indent=1, sort_keys=True)
 
-    def dump(self, **kwargs) -> str:
-        import yaml
-
-        return yaml.safe_dump(self._to_plain(), default_flow_style=False, **kwargs)
+    def dump(self) -> str:
+        """The tree as YAML text (block mappings, flow lists) that
+        ``merge_from_file`` reads back."""
+        return yaml_lite.dump(self._to_plain())
 
     # -- merging -----------------------------------------------------------
     def merge_from_file(self, cfg_filename: str) -> None:
-        import yaml
-
-        with open(cfg_filename, "r") as f:
-            loaded = yaml.safe_load(f)
+        """Merges a ``.json`` file (``json``) or a YAML file (``yaml_lite``,
+        which raises on YAML outside the subset the repo's configs use)."""
+        with open(cfg_filename, "r", encoding="utf-8") as f:
+            text = f.read()
+        loaded = json.loads(text) if cfg_filename.endswith(".json") else yaml_lite.load(text)
         if loaded is None:
             return
         self._merge_dict(CfgNode(loaded), [])

@@ -1,11 +1,11 @@
 """Default config tree of the PyTorch port.
 
-The nodes the eval and train slices, the VGG-Sound data path and
-``train(cfg)`` read, copied key-for-key from
+The nodes the eval and train slices, the VGG-Sound data path,
+``train(cfg)`` and ``test(cfg)`` read, copied key-for-key from
 ``asf_tpu/config/defaults.py`` so that YAMLs written for the JAX package
 merge unchanged, plus a ``GPU`` node: the counterparts of
-``TPU.COMPUTE_DTYPE``, ``TPU.DSP_PRECISION``, ``TPU.SPEC_AUGMENT``,
-``TPU.INT16_TRANSFER`` and ``TPU.PREFETCH_DEPTH``. There is no kernel on/off
+``TPU.COMPUTE_DTYPE``, ``TPU.DSP_PRECISION``, ``TPU.SPEC_AUGMENT`` and
+``TPU.INT16_TRANSFER``. There is no kernel on/off
 switch: on CUDA tensors the hand-written kernels always run, on CPU tensors
 their plain PyTorch versions do.
 """
@@ -42,14 +42,21 @@ _C.TRAIN.CHECKPOINT_EPOCH_RESET = False
 _C.TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN = ()
 
 # ---------------------------------------------------------------------------
-# Testing options (the keys the test split of the datasets and the test
-# checkpoint precedence read)
+# Testing options
 # ---------------------------------------------------------------------------
 _C.TEST = CfgNode()
+_C.TEST.ENABLE = True
 _C.TEST.DATASET = "vggsound"
 _C.TEST.BATCH_SIZE = 8
 _C.TEST.CHECKPOINT_FILE_PATH = ""
 _C.TEST.NUM_ENSEMBLE_VIEWS = 10
+# The score pickle's name under OUTPUT_DIR/scores ("" is test_scores.pkl).
+_C.TEST.SAVE_RESULTS_PATH = ""
+
+# Sliding-window evaluation comes with the EPIC slice: test(cfg) raises
+# when it is enabled. Its window keys come with it.
+_C.TEST.SLIDE = CfgNode()
+_C.TEST.SLIDE.ENABLE = False
 
 # ---------------------------------------------------------------------------
 # ResNet options
@@ -187,10 +194,6 @@ _C.GPU.SPEC_AUGMENT = True
 # applies the /32768 scale (bit-identical to the host conversion) and the
 # copy moves half the bytes. Applies to wav-backed datasets.
 _C.GPU.INT16_TRANSFER = True
-# Batches copied to the card ahead of the step, on a side CUDA stream from
-# pinned memory (data/prefetch.py); 0 loads and copies each batch when the
-# loop asks for it.
-_C.GPU.PREFETCH_DEPTH = 2
 
 
 def _assert_and_infer_cfg(cfg: CfgNode) -> CfgNode:

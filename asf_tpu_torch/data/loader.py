@@ -1,12 +1,32 @@
-"""Batch loader: items fetched by a thread pool, collated into numpy batches.
+"""Batch loader: whole batches read and collated in worker processes.
 
 Counterpart of ``asf_tpu/data/loader.py`` (``collate`` :39-126,
 ``AsfLoader`` :129-358, ``construct_loader`` :361-392, ``shuffle_dataset``
 :395-397) for single-clip items; the GRU window chains come with the GRU
-slice. Items are read by threads, not processes: the work is file reads and
-numpy, which release the interpreter lock. ``AsfLoader`` visits the indices
-in the JAX package's order (``np.random.default_rng(seed + epoch)``, the
-wrap-pad and the rank split), so both packages see the same batches.
+slice. ``AsfLoader`` visits the indices in the JAX package's order
+(``np.random.default_rng(seed + epoch)``, the wrap-pad and the rank split),
+so both packages see the same batches.
+
+The JAX package reads items on a thread pool. The port reads them in the
+worker processes of a ``torch.utils.data.DataLoader`` (``NUM_WORKERS`` of
+them, as the reference's DataLoader does), so that the loader's Python never
+holds the interpreter lock of the process that dispatches the step. Each
+request is a key ``(epoch, chunk)``, one batch's slice of ``_indices()``:
+the epoch travels with the request, and a worker reads the chunk with the
+dataset's ``get_batch(epoch, chunk)`` and collates it. ``NUM_WORKERS = 0``
+reads in the calling process.
+
+Workers start with ``spawn``: the parent holds a CUDA context and the
+prefetcher's thread, and a child forked from a process with threads can
+inherit a lock (the logging module's, CUDA's) that a thread of the parent
+held, and wait on it for ever. A spawned worker starts from a fresh
+interpreter, imports this package and numpy (never CUDA), and receives the
+dataset by pickle; a script that reads data therefore runs under ``if
+__name__ == "__main__":``. Workers live as long as the loader
+(``persistent_workers``) and ``close`` ends them. Each worker holds at most
+``PREFETCH_FACTOR`` requests. Batches come back as pickled numpy arrays
+through the workers' pipes (no shared-memory segment); the prefetcher pins
+them, once.
 
 The last val batch keeps its real rows only (no padding, no mask): the JAX
 package pads it because XLA compiles static shapes; the port computes the
@@ -15,13 +35,16 @@ metrics on the rows it has. The host-to-card copy is ``data/prefetch.py``'s.
 
 from __future__ import annotations
 
-import concurrent.futures as cf
 from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
+import torch
+from torch.utils import data as tud
 
 from . import vggsound as _vgg  # noqa: F401  (registers the dataset)
 from .build import build_dataset
+
+PREFETCH_FACTOR = 2  # requests a worker holds at a time
 
 
 def collate(items: List[Dict[str, Any]]) -> Dict[str, Any]:
@@ -47,9 +70,42 @@ def collate(items: List[Dict[str, Any]]) -> Dict[str, Any]:
     }
 
 
+def _as_is(batch):
+    """The DataLoader's ``collate_fn``: a request already gives a batch."""
+    return batch
+
+
+class _Batches(tud.Dataset):
+    """A dataset whose items are collated batches, keyed by ``(epoch, chunk)``."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __getitem__(self, key):
+        epoch, chunk = key
+        return collate(self.dataset.get_batch(epoch, chunk))
+
+
+class _Chunks(tud.Sampler):
+    """One pass over ``loader``: its ``(epoch, chunk)`` keys, taken from its
+    epoch and order when the pass starts."""
+
+    def __init__(self, loader: "AsfLoader"):
+        self.loader = loader
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __iter__(self):
+        ld, bs = self.loader, self.loader.batch_size
+        idx = ld._indices()
+        for b in range(len(ld)):
+            yield ld.epoch, idx[b * bs : (b + 1) * bs]
+
+
 class AsfLoader:
-    """Iterable over collated numpy batches, with a thread pool that lives as
-    long as the loader (``close`` ends it)."""
+    """Iterable over collated numpy batches; with ``num_workers > 0`` its
+    worker processes start at the first pass and live until ``close``."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool, drop_last: bool,
                  num_workers: int = 8, seed: int = 0, rank: int = 0, world_size: int = 1):
@@ -57,29 +113,43 @@ class AsfLoader:
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
-        self.num_workers = max(1, num_workers)
+        self.num_workers = int(num_workers)
         self.seed = seed
         self.epoch = 0
         self.rank = rank
         self.world_size = world_size
-        self._pool: Optional[cf.ThreadPoolExecutor] = None
+        self._dl: Optional[tud.DataLoader] = None
 
-    def _get_pool(self) -> cf.ThreadPoolExecutor:
-        if self._pool is None:
-            self._pool = cf.ThreadPoolExecutor(max_workers=self.num_workers,
-                                               thread_name_prefix="asf-loader")
-        return self._pool
+    def _loader(self) -> tud.DataLoader:
+        if self._dl is None:
+            workers = self.num_workers > 0
+            self._dl = tud.DataLoader(
+                _Batches(self.dataset), batch_size=None, sampler=_Chunks(self),
+                collate_fn=_as_is, num_workers=self.num_workers,
+                persistent_workers=workers,
+                prefetch_factor=PREFETCH_FACTOR if workers else None,
+                multiprocessing_context="spawn" if workers else None,
+                # The workers' seeds come from here, not from torch's global
+                # generator, whose draws the train step's dropout takes.
+                generator=torch.Generator().manual_seed(int(self.seed)),
+            )
+        return self._dl
+
+    def worker_pids(self) -> List[int]:
+        """The pids of the live worker processes (none before the first pass)."""
+        it = getattr(self._dl, "_iterator", None)
+        return [w.pid for w in getattr(it, "_workers", []) if w.is_alive()]
 
     def close(self):
-        if self._pool is not None:
-            self._pool.shutdown(wait=True)
-            self._pool = None
+        """Ends the worker processes and waits for them."""
+        it = getattr(self._dl, "_iterator", None)
+        if it is not None:
+            it._shutdown_workers()
+        self._dl = None
 
     def set_epoch(self, epoch: int):
-        """Reshuffles the order and re-keys the dataset's per-item draws."""
+        """Reshuffles the order and re-keys the items' draws from the next pass on."""
         self.epoch = epoch
-        if hasattr(self.dataset, "set_epoch"):
-            self.dataset.set_epoch(epoch)
 
     def _indices(self) -> np.ndarray:
         n = len(self.dataset)
@@ -102,11 +172,7 @@ class AsfLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
-        idx = self._indices()
-        pool = self._get_pool()
-        for b in range(len(self)):
-            chunk = idx[b * self.batch_size : (b + 1) * self.batch_size]
-            yield collate(list(pool.map(self.dataset.__getitem__, chunk)))
+        return iter(self._loader())
 
 
 def construct_loader(cfg, split: str) -> AsfLoader:

@@ -1,4 +1,4 @@
-"""Host batches to the card, ``depth`` batches ahead of the step.
+"""Host batches to the card, ``DEPTH`` batches ahead of the step.
 
 Counterpart of ``asf_tpu/data/loader.py:iter_prefetched`` and
 ``DevicePrefetcher`` (:400-575). A worker thread takes the loader's numpy
@@ -11,11 +11,13 @@ copy while the consumer's kernels still read it. The pinned buffers stay
 referenced until the consumer has taken the batch, and PyTorch's pinned
 allocator does not reuse a buffer before the copy out of it has finished.
 
-int16 waveforms stay int16 on the wire; labels and indices keep their
-integer types. With ``device="cpu"`` the same tensors come without pinning
-or streams (the caller's choice, not a fallback). With ``depth=0`` there is
-no worker: each batch is loaded and copied the same way when the consumer
-asks for it.
+This is the one place a batch is pinned: the loader's workers hand over
+plain numpy arrays. int16 waveforms stay int16 on the wire; labels and
+indices keep their integer types. With ``device="cpu"`` the same tensors
+come without pinning or streams (the caller's choice, not a fallback). With ``depth=0`` there is
+no worker thread: each batch is loaded and copied the same way when the
+consumer asks for it (the tests use it to make the loader's delays the
+loop's data wait).
 
 The JAX package's K-step macro-batches and device-side LR (``group``,
 ``lr_fn``) exist for XLA's dispatch and are not ported.
@@ -29,6 +31,8 @@ from typing import Iterable, Optional
 
 import numpy as np
 import torch
+
+DEPTH = 2  # batches copied ahead of the step by ``prefetch``
 
 
 def _tensors(batch: dict, fn) -> dict:
@@ -156,6 +160,6 @@ class Prefetcher:
         self.close()
 
 
-def prefetch(loader: Iterable[dict], cfg, device) -> Prefetcher:
-    """``loader``'s batches on ``device``, ``GPU.PREFETCH_DEPTH`` ahead."""
-    return Prefetcher(loader, device, depth=cfg.GPU.PREFETCH_DEPTH)
+def prefetch(loader: Iterable[dict], device) -> Prefetcher:
+    """``loader``'s batches on ``device``, ``DEPTH`` ahead."""
+    return Prefetcher(loader, device, depth=DEPTH)

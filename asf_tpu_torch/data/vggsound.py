@@ -10,8 +10,12 @@ zero-padded and its ``n_valid`` says how many samples are real.
 
 The annotation pickle is read with ``pickle.load``, not pandas: a pickled
 DataFrame (which pandas must be installed to unpickle) gives its rows
-through ``to_dict("records")``, a list of dicts is taken as it is. The JAX
-package's device-store protocol (``get_ref``, ``get_refs_batch``,
+through ``to_dict("records")``, a list of dicts is taken as it is.
+
+The loader reads whole batches through ``get_batch(epoch, indices)``, which
+draws the batch's clip starts in one vectorised call (as the JAX package's
+``get_refs_batch`` does); ``__getitem__`` is the per-item definition it is
+held to. The JAX package's device-store protocol (``get_ref``,
 ``device_store_table``) is not ported.
 """
 
@@ -24,15 +28,22 @@ import numpy as np
 
 from ..utils.logging import get_logger
 from .build import register_dataset
-from .sampling import get_start_end_idx, item_rng
+from .sampling import get_start_end_idx, get_start_end_idx_batch, item_rng
 
 logger = get_logger(__name__)
 
 
 def load_wav(path: str, keep_int16: bool = False) -> tuple[np.ndarray, int]:
+    """(samples, rate). With ``keep_int16`` a mono int16 file comes back
+    memory-mapped, so that only the pages of the clip a caller copies out
+    are read (a 10 s file holds eight 1.28 s clips); a file that cannot be
+    mapped (24-bit PCM) is read whole, as every file is without it."""
     from scipy.io import wavfile
 
-    sr, data = wavfile.read(path)
+    try:
+        sr, data = wavfile.read(path, mmap=keep_int16)
+    except ValueError:  # scipy maps only 1-, 2-, 4- and 8-byte samples
+        sr, data = wavfile.read(path)
     if data.dtype == np.int16:
         if keep_int16 and data.ndim == 1:
             return data, sr
@@ -128,33 +139,62 @@ class Vggsound:
     def _wav_name(record) -> str:
         return record["video"][:-4] + ".wav"
 
-    def __getitem__(self, index: int):
+    def _views(self, indices) -> np.ndarray:
+        """Each item's view: -1 (a uniform draw) in train and val."""
+        if self.mode in ["train", "val"]:
+            return np.full(len(indices), -1, np.int64)
+        return np.asarray([self._temporal_idx[i] for i in indices], np.int64)
+
+    def _read(self, index: int) -> np.ndarray:
         record = self._audio_records[index]
-        tsi = -1 if self.mode in ["train", "val"] else self._temporal_idx[index]
         path = os.path.join(self.cfg.VGGSOUND.AUDIO_DATA_DIR, self._wav_name(record))
         samples, sr = load_wav(path, keep_int16=self.int16)
         assert sr == self.cfg.AUDIO_DATA.SAMPLING_RATE, (
             f"Audio sampling rate ({sr}) does not match target "
             f"({self.cfg.AUDIO_DATA.SAMPLING_RATE})"
         )
-        if len(samples) < self.clip_size:
-            clip = samples
-        else:
-            start, end = get_start_end_idx(
-                len(samples), self.clip_size, tsi, self.cfg.TEST.NUM_ENSEMBLE_VIEWS,
-                rng=item_rng(self.cfg.RNG_SEED, self._epoch, index),
-            )
-            clip = samples[int(start) : int(end)]
+        return samples
+
+    def _item(self, index: int, samples: np.ndarray, start: float, end: float) -> dict:
+        """The clip ``[int(start), int(end))`` of ``samples`` (the whole file
+        when it is shorter than a clip), zero-padded to ``clip_samples``."""
+        clip = samples if len(samples) < self.clip_size else samples[int(start) : int(end)]
         wave = np.zeros(self.clip_samples, samples.dtype)
         n = min(len(clip), self.clip_samples)
         wave[:n] = clip[:n]
         return {
             "waveform": wave,
             "n_valid": np.int32(n),
-            "label": {"class_id": record["class_id"]},
+            "label": {"class_id": self._audio_records[index]["class_id"]},
             "index": index,
             "metadata": {},
         }
+
+    def __getitem__(self, index: int):
+        """Item ``index`` at the epoch of ``set_epoch``, placed by its own
+        ``item_rng``: the definition that ``get_batch`` replays."""
+        samples = self._read(index)
+        start = end = 0.0
+        if len(samples) >= self.clip_size:
+            start, end = get_start_end_idx(
+                len(samples), self.clip_size, int(self._views([index])[0]),
+                self.cfg.TEST.NUM_ENSEMBLE_VIEWS,
+                rng=item_rng(self.cfg.RNG_SEED, self._epoch, index),
+            )
+        return self._item(index, samples, start, end)
+
+    def get_batch(self, epoch: int, indices) -> list:
+        """The items ``indices`` of ``epoch``, each bit for bit what
+        ``__getitem__`` gives after ``set_epoch(epoch)``, with the batch's
+        starts drawn in one vectorised call. The epoch comes with the call,
+        so a loader worker that lives across epochs holds no stale one."""
+        indices = [int(i) for i in indices]
+        samples = [self._read(i) for i in indices]
+        starts, ends = get_start_end_idx_batch(
+            [len(x) for x in samples], self.clip_size, self._views(indices),
+            self.cfg.TEST.NUM_ENSEMBLE_VIEWS, self.cfg.RNG_SEED, epoch, indices,
+        )
+        return [self._item(i, x, a, b) for i, x, a, b in zip(indices, samples, starts, ends)]
 
     def __len__(self):
         return len(self._audio_records)

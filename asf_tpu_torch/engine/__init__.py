@@ -1,5 +1,7 @@
-"""Train and eval loops of the port; ``train(cfg)`` is the training entry point."""
+"""Train, eval and test loops of the port; ``train(cfg)`` and ``test(cfg)``
+are the entry points."""
 
+from .test_loop import test
 from .train_loop import train
 
-__all__ = ["train"]
+__all__ = ["test", "train"]

@@ -35,7 +35,7 @@ def eval_epoch(val_loader, model, eval_step, val_meter, cur_epoch, cfg, device):
             val_meter.log_iter_stats(cur_epoch, it, times)
         pending.clear()
 
-    src = prefetch(val_loader, cfg, device)
+    src = prefetch(val_loader, device)
     try:
         val_meter.iter_tic()
         for cur_iter, batch in enumerate(src):

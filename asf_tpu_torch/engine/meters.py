@@ -1,13 +1,17 @@
 """Meters: windowed scalars and the train and val epoch stats.
 
 Counterpart of ``asf_tpu/engine/meters.py:29-245`` (``Timer``,
-``ScalarMeter``, ``TrainMeter``, ``ValMeter``, ``mem_stats``), with the same
-``json_stats`` records (``_type``, ``epoch``, ``iter``, ``dt``, ``dt_data``,
-``dt_net``, ``eta``, ``top1_err``, ``top5_err``, ``loss``, ``lr``) and the same
-best-epoch rule; ``val_iter`` records also carry ``dt`` and ``dt_data``.
+``ScalarMeter``, ``TrainMeter``, ``ValMeter``, ``mem_stats``) and of its
+single-task ``TestMeter`` (:393-460), with the same ``json_stats`` records
+(``_type``, ``epoch``, ``iter``, ``dt``, ``dt_data``, ``dt_net``, ``eta``,
+``top1_err``, ``top5_err``, ``loss``, ``lr``; ``test_iter`` with
+``cur_iter`` and ``time_diff``, ``test_final`` with ``top1_acc`` and
+``top5_acc``) and the same best-epoch rule; ``val_iter`` records also carry
+``dt`` and ``dt_data``, ``test_iter`` records ``dt_data``, and a test
+iteration is logged every ``LOG_PERIOD`` (the JAX package: every 20).
 Memory: the card's peak allocation (``gpu_mem``, the upstream name) and the
-host's resident set. The verb/noun, state and test meters come with their
-slices.
+host's resident set. The verb/noun, state and sliding-window meters come
+with their slices.
 
 The loops log an iteration's stats at a later flush, once its numbers are
 off the card, so they take the iteration's times (``iter_times()``) at its
@@ -23,8 +27,10 @@ from collections import deque
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..utils.logging import log_json_stats
+from . import metrics
 from ..utils.misc import gpu_mem_gb, host_mem_gb
 
 
@@ -218,3 +224,74 @@ class ValMeter(_BaseEpochMeter):
             "min_top1_err": self.min_top1_err,
         })
         return is_best, {"top1_acc": 100.0 - top1}
+
+
+class TestMeter:
+    """Multi-view ensembling of a single-task test set: the scores of clip
+    ``clip_id // num_clips``'s views are summed or maxed
+    (``DATA.ENSEMBLE_METHOD``), in the order they arrive, into float64 rows;
+    every view of a clip must carry the clip's label."""
+
+    def __init__(self, num_audios: int, num_clips: int, num_cls: int, overall_iters: int,
+                 ensemble_method: str = "sum", log_period: int = 20):
+        if ensemble_method not in ("sum", "max"):
+            raise NotImplementedError(ensemble_method)
+        self.num_clips = num_clips
+        self.overall_iters = overall_iters
+        self.ensemble_method = ensemble_method
+        self.log_period = max(1, int(log_period))
+        self.audio_preds = np.zeros((num_audios, num_cls), np.float64)
+        self.audio_labels = np.zeros((num_audios,), np.int64)
+        self.clip_count = np.zeros((num_audios,), np.int64)
+        self.iter_timer = Timer()
+        self.data_timer = Timer()
+        self.stats = {}
+
+    def update_stats(self, preds, labels, clip_ids):
+        preds = np.asarray(preds)
+        labels = np.asarray(labels)
+        vid = np.asarray(clip_ids) // self.num_clips
+        seen = self.clip_count[vid] > 0
+        self.audio_labels[vid[~seen]] = labels[~seen]
+        if not (self.audio_labels[vid] == labels).all():
+            raise AssertionError("the views of a clip carry different labels")
+        if self.ensemble_method == "sum":
+            np.add.at(self.audio_preds, vid, preds)
+        else:
+            np.maximum.at(self.audio_preds, vid, preds)
+        np.add.at(self.clip_count, vid, 1)
+
+    def iter_tic(self):
+        self.iter_timer.reset()
+        self.data_timer.reset()
+
+    def iter_toc(self):
+        self.iter_timer.pause()
+
+    def data_toc(self):
+        self.data_timer.pause()
+
+    def iter_times(self) -> Tuple[float, float]:
+        """(iteration, data wait) seconds of the current iteration."""
+        return self.iter_timer.seconds(), self.data_timer.seconds()
+
+    def log_iter_stats(self, cur_iter: int, times=None):
+        if (cur_iter + 1) % self.log_period != 0:
+            return
+        dt, dt_data = times or self.iter_times()
+        log_json_stats({"_type": "test_iter", "cur_iter": f"{cur_iter + 1}",
+                        "time_diff": dt, "dt_data": dt_data})
+
+    def finalize_metrics(self, ks=(1, 5)):
+        """Logs the ``test_final`` top-k accuracies (and a ``test_warn`` record
+        when a clip lacks views); returns (ensembled scores, labels)."""
+        if not np.all(self.clip_count == self.num_clips):
+            log_json_stats({"_type": "test_warn", "msg": "clip count incomplete",
+                            "incomplete": int((self.clip_count != self.num_clips).sum())})
+        accs = metrics.topk_accuracies(torch.from_numpy(self.audio_preds),
+                                       torch.from_numpy(self.audio_labels), ks)
+        self.stats = {"_type": "test_final"}
+        for k, acc in zip(ks, accs):
+            self.stats[f"top{k}_acc"] = f"{float(acc):.2f}"
+        log_json_stats(self.stats)
+        return self.audio_preds.copy(), self.audio_labels.copy()

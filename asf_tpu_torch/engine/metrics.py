@@ -1,15 +1,24 @@
-"""Top-k accuracies on the device.
+"""Top-k accuracies on the device; the VGG-Sound test metrics on the host.
 
 Counterparts of ``asf_tpu/engine/metrics.py:24-62``: ``topks_correct``,
 ``topk_accuracies`` and the joint (every task right) multitask pair. Each
 returns 0-d float32 tensors on the input's device, so the train step reads
 nothing back to the host.
+
+``d_prime``, ``vggsound_stats`` and ``get_map`` (``:208-252``) score the
+ensembled test predictions. The JAX package takes average precision and
+ROC AUC from scikit-learn, which the machine with the card may lack; here
+they are numpy with scikit-learn's definitions: average precision steps
+over the distinct scores (a run of tied scores is one threshold), and the
+AUC is the trapezoid over the ROC points of those thresholds, so a tied
+run counts as half right.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 
@@ -43,3 +52,85 @@ def multitask_topks_correct(preds, labels, ks=(1,)):
 def multitask_topk_accuracies(preds, labels, ks=(1, 5)):
     n = preds[0].shape[0]
     return [c / n * 100.0 for c in multitask_topks_correct(preds, labels, ks)]
+
+
+# ---------------------------------------------------------------------------
+# VGG-Sound test metrics (host, numpy)
+# ---------------------------------------------------------------------------
+
+def _binary_curve(y_true: np.ndarray, score: np.ndarray):
+    """(true positives, false positives) at each distinct score, highest
+    first: scikit-learn's ``_binary_clf_curve``."""
+    order = np.argsort(score, kind="mergesort")[::-1]
+    score, y_true = score[order], y_true[order]
+    last = np.r_[np.flatnonzero(np.diff(score)), score.size - 1]
+    tps = np.cumsum(y_true, dtype=np.float64)[last]
+    return tps, last + 1 - tps
+
+
+def average_precision(y_true: np.ndarray, score: np.ndarray) -> float:
+    """scikit-learn's ``average_precision_score`` of one binary column:
+    the sum over thresholds of (recall step) x precision."""
+    tps, fps = _binary_curve(np.asarray(y_true, np.float64), np.asarray(score, np.float64))
+    if tps[-1] == 0:
+        return 0.0
+    recall = np.r_[0.0, tps / tps[-1]]
+    return float(np.sum(np.diff(recall) * (tps / (tps + fps))))
+
+
+def roc_auc(y_true: np.ndarray, score: np.ndarray) -> float:
+    """scikit-learn's ``roc_auc_score`` of one binary column; raises
+    ``ValueError`` when the column holds one class only, as it does."""
+    tps, fps = _binary_curve(np.asarray(y_true, np.float64), np.asarray(score, np.float64))
+    if tps[-1] == 0 or fps[-1] == 0:
+        raise ValueError("Only one class present in y_true. ROC AUC score is not defined.")
+    tpr, fpr = np.r_[0.0, tps / tps[-1]], np.r_[0.0, fps / fps[-1]]
+    return float(np.sum(np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2.0))
+
+
+def d_prime(auc: float) -> float:
+    """sqrt(2) x the standard normal quantile of ``auc`` (``scipy.special.ndtri``
+    is ``scipy.stats.norm.ppf``'s function)."""
+    from scipy.special import ndtri
+
+    return (2.0 ** 0.5) * float(ndtri(auc))
+
+
+def vggsound_stats(preds, labels) -> dict:
+    """mAP, mean AUC and d' of (N, C) scores against (N,) class ids, one-hot;
+    classes with no positive are left out, and a class every clip belongs to
+    has no AUC."""
+    preds = np.asarray(preds)
+    labels = np.asarray(labels)
+    if not np.isfinite(preds).all():
+        raise ValueError("Input contains NaN or infinity.")
+    one_hot = np.eye(preds.shape[1])[labels]
+    aps, aucs = [], []
+    for k in range(preds.shape[1]):
+        if one_hot[:, k].sum() == 0:
+            continue
+        aps.append(average_precision(one_hot[:, k], preds[:, k]))
+        try:
+            aucs.append(roc_auc(one_hot[:, k], preds[:, k]))
+        except ValueError:
+            pass
+    m_auc = float(np.mean(aucs)) if aucs else 0.0
+    return {
+        "mAP": float(np.mean(aps)) if aps else 0.0,
+        "AUC": m_auc,
+        "d_prime": d_prime(m_auc) if 0.0 < m_auc < 1.0 else 0.0,
+    }
+
+
+def get_map(preds, labels) -> float:
+    """Multi-label mAP: classes with no positive dropped, then the mean of
+    each class's average precision; 0.0 for labels that are not 0/1 or
+    scores that are not finite (where scikit-learn raises)."""
+    preds = np.asarray(preds, np.float64)
+    labels = np.asarray(labels)
+    keep = ~np.all(labels == 0, axis=0)
+    preds, labels = preds[:, keep], labels[:, keep]
+    if not np.isin(labels, (0, 1)).all() or not np.isfinite(preds).all():
+        return 0.0
+    return float(np.mean([average_precision(labels[:, k], preds[:, k])
+                          for k in range(labels.shape[1])]))

@@ -78,7 +78,7 @@ def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, de
             pending.clear()
         apply_ready(block)
 
-    src = prefetch(train_loader, cfg, device)
+    src = prefetch(train_loader, device)
     try:
         train_meter.iter_tic()
         for cur_iter, batch in enumerate(src):
@@ -117,7 +117,7 @@ def precise_bn(cfg, state, loader, pipeline, device, num_iters: int) -> None:
         bn.momentum = None
         bn.stats_frozen = False
     model.train()
-    src = prefetch(loader, cfg, device)
+    src = prefetch(loader, device)
     try:
         for batch in itertools.islice(src, num_iters):
             model(pipeline(batch["waveform"], batch["n_valid"], train=False))

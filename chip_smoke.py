@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Six phases, each of which raises on a
+Run from the root of a checkout. Seven phases, each of which raises on a
 failed check (the script then exits non-zero and prints no result):
 
 1. Device and build: needs a CUDA device; prints the card's name and power
@@ -58,7 +58,8 @@ failed check (the script then exits non-zero and prints no result):
    set written into a temporary directory (mono int16 wav files at 24 kHz,
    2.0 s each, 192 train and 96 val, 309 classes; list-of-dicts annotation
    pickles), the flagship SlowFast-R50 at B = 64 with the bf16 front end,
-   precise BN over 2 batches and a val epoch and checkpoint every epoch.
+   precise BN over 2 batches and a val epoch and checkpoint every epoch,
+   the loader reading in 8 worker processes.
    Run 1 trains one epoch; run 2, with two epochs in the same output
    directory, must auto-resume at epoch 2 and step 3 and end at step 6.
    ``logmel_bf16`` must launch exactly 7 times a run (3 train, 2 precise
@@ -70,7 +71,20 @@ failed check (the script then exits non-zero and prints no result):
    Prints ms per train and val iteration and the data wait (the host
    times in the loop's ``json_stats`` records), epoch wall seconds, and
    ``train_entry``'s ms per step from phase 4 beside them.
-6. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
+6. ``test(cfg)``: phase 5's final checkpoint scores 32 more synthetic
+   2 s files in 10 views each (320 items, 5 batches of 64) through
+   ``logmel_bf16``, which must launch exactly 5 times. Every clip must
+   have its 10 views (each ensembled row finite and summing to 10 within
+   1e-3, no ``test_warn`` record), the score pickle ``{output, labels}``
+   must hold the result, and top-1 and top-5 recomputed from it must equal
+   the meter's. The same test then runs through ``python -m
+   asf_tpu_torch.tools.run_net`` with a YAML config written at run time; it
+   must exit 0 and its scores must lie within ``CLI_TOL`` of the in-process
+   run's. Before that, while the test loader's 8 workers read, neither
+   ``nvidia-smi`` nor ``/proc/<pid>/fd`` may show a worker holding the card
+   (this process, the control, must). Prints ms per test iteration and
+   clip views/s at B = 64, and the cores the workers share.
+7. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
    both above the card's float32 CUDA-core peak at their main-path shapes
    (``logmel_bf16`` flagship at B = 64 and 128, ``logmel_bf16_wide`` at
    B = 64); no ``HGMMA`` and no ``HMMA`` in the SASS of ``logmel_f32``'s
@@ -78,7 +92,7 @@ failed check (the script then exits non-zero and prints no result):
    slices, so that a run against an older tree of the kernels (a
    parent-versus-change comparison) still prints all its times before it
    fails.
-7. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+8. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -87,6 +101,7 @@ import copy
 import json
 import math
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -167,6 +182,13 @@ TRAIN_BATCH = 64
 TRAIN_FILES, VAL_FILES, FILE_SECS = 192, 96, 2.0
 # logmel_bf16 launches of one train(cfg) epoch: 3 train + 2 precise-BN + 2 val batches.
 EPOCH_LAUNCHES = 7
+LOADER_WORKERS = 8  # the loader's worker processes in phases 5 and 6
+# Phase 6's test set: 32 clips of FILE_SECS in 10 views, 320 items in 5 batches of 64.
+TEST_FILES, TEST_VIEWS, TEST_BATCH = 32, 10, 64
+TEST_LAUNCHES = TEST_FILES * TEST_VIEWS // TEST_BATCH
+# Ensembled scores of one checkpoint, test(cfg) in this process against the
+# run_net CLI in another: the same kernels on the same inputs.
+CLI_TOL = 1e-4
 
 
 def check(ok: bool, msg: str) -> None:
@@ -432,7 +454,7 @@ def f32_branches(tag: str, card: str, args: tuple, geo: dict, got: torch.Tensor,
 
 
 def check_instructions(card: str, sass: dict, kernels: dict) -> None:
-    """Phase 6: both bf16 kernels hold HGMMA and beat the float32 CUDA-core
+    """Phase 7: both bf16 kernels hold HGMMA and beat the float32 CUDA-core
     peak at their main-path shapes; logmel_f32's kernels hold no tensor-core
     instruction."""
     n_fns, hgmma, hmma = sass["logmel_f32"]
@@ -652,7 +674,7 @@ def check_prefetch(cfg) -> None:
         t0 = time.perf_counter()
         host = next(iter(ld))
         host_ms = (time.perf_counter() - t0) * 1e3
-        with prefetch(ld, cfg, "cuda") as src:
+        with prefetch(ld, "cuda") as src:
             t0 = time.perf_counter()
             dev = next(iter(src))
             torch.cuda.synchronize()
@@ -670,13 +692,15 @@ def check_prefetch(cfg) -> None:
           f"{dev['waveform'].dtype}, not int16")
     print(f"[train(cfg)] the first prefetched batch equals its host batch bit for bit "
           f"(waveform {tuple(dev['waveform'].shape)} int16, labels int64); the host batch "
-          f"took {host_ms:.1f} ms (the loader's threads started), the first batch through a "
-          f"new prefetcher {first_ms:.1f} ms (read, collate, pin, copy)", flush=True)
+          f"took {host_ms:.1f} ms (the loader's {LOADER_WORKERS} worker processes started), "
+          f"the first batch through a new prefetcher {first_ms:.1f} ms (read, collate, pin, "
+          f"copy)", flush=True)
 
 
-def phase_train_cfg(card: str, step_ms: float) -> dict:
-    """Phase 5: ``train(cfg)`` twice, the second resuming the first; returns
-    the launch counts of both runs together."""
+def phase_train_cfg(card: str, step_ms: float, root: str):
+    """Phase 5: ``train(cfg)`` twice in ``root``, the second resuming the
+    first; returns the launch counts of both runs together and the config
+    (its ``OUTPUT_DIR`` holds the checkpoints)."""
     from asf_tpu_torch.checkpoint import manager as cu
     from asf_tpu_torch.engine import train
     from asf_tpu_torch.entry import flagship_cfg
@@ -691,64 +715,64 @@ def phase_train_cfg(card: str, step_ms: float) -> dict:
     cfg.TRAIN.EVAL_PERIOD = cfg.TRAIN.CHECKPOINT_PERIOD = 1
     cfg.LOG_PERIOD = 1
     cfg.LOG_MODEL_INFO = False
+    cfg.DATA_LOADER.NUM_WORKERS = LOADER_WORKERS
 
     stats = StatsLog()
     stats.__enter__()
     launches = {name: 0 for name in REPLACES}
     walls = []  # per run: seconds in train(cfg), and from "Start epoch" to the train_epoch record
     try:
-        with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_vggsound(root, cfg, TRAIN_FILES, VAL_FILES, FILE_SECS)
+        cfg.OUTPUT_DIR = os.path.join(root, "out")
+        print(f"[train(cfg)] wrote {TRAIN_FILES} + {VAL_FILES} wav files of {FILE_SECS} s in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        check_prefetch(cfg)
+        ckpts = os.path.join(cfg.OUTPUT_DIR, "checkpoints")
+        for run, max_epoch in ((1, 1), (2, 2)):
+            cfg.SOLVER.MAX_EPOCH = max_epoch
+            since = len(stats.records)
+            torch.cuda.synchronize()
+            zero_launches()
             t0 = time.perf_counter()
-            write_vggsound(root, cfg, TRAIN_FILES, VAL_FILES, FILE_SECS)
-            cfg.OUTPUT_DIR = os.path.join(root, "out")
-            print(f"[train(cfg)] wrote {TRAIN_FILES} + {VAL_FILES} wav files of {FILE_SECS} s in "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
-            check_prefetch(cfg)
-            ckpts = os.path.join(cfg.OUTPUT_DIR, "checkpoints")
-            for run, max_epoch in ((1, 1), (2, 2)):
-                cfg.SOLVER.MAX_EPOCH = max_epoch
-                since = len(stats.records)
-                torch.cuda.synchronize()
-                zero_launches()
-                t0 = time.perf_counter()
-                state = train(cfg)
-                torch.cuda.synchronize()
-                counts = read_launches()
-                wall = time.perf_counter() - t0
-                for name, n in counts.items():
-                    launches[name] += n
-                iters = stats.of("train_iter", since)
-                epochs = stats.of("train_epoch", since)
-                check(len(epochs) == 1, f"run {run} logged {len(epochs)} train epochs")
-                # The epoch's record follows the flush that waits for its last step.
-                walls.append((wall, epochs[0]["_at"] - stats.starts[-1]))
-                print(f"[train(cfg)] run {run}: MAX_EPOCH {max_epoch}, train_iter records "
-                      f"{[(r['epoch'], r['iter']) for r in iters]}, last step {state.step}, "
-                      f"launches {counts}, {wall:.1f} s in train(cfg)", flush=True)
-                want = {name: (EPOCH_LAUNCHES if name == "logmel_bf16" else 0) for name in REPLACES}
-                check(counts == want, f"run {run}: launches {counts}, expected {want}")
-                check(all(p.is_cuda for p in state.model.parameters()),
-                      f"run {run}: parameters off the card")
-                # Run 2 resumes at epoch 2: its 3 steps are that epoch's and end at step 6.
-                check([(r["epoch"], r["iter"]) for r in iters]
-                      == [(f"{run}/{max_epoch}", f"{i}/3") for i in (1, 2, 3)]
-                      and state.step == 3 * run,
-                      f"run {run} logged {iters} and ended at step {state.step}")
-                if run == 1:
-                    fresh = build_model(cfg, "cuda")
-                    fresh.load_state_dict(cu.load_checkpoint(
-                        os.path.join(ckpts, "checkpoint_epoch_00001.pyth"))["model_state"])
-                    want_sd = state.model.state_dict()
-                    differ = [k for k, v in fresh.state_dict().items()
-                              if not torch.equal(v, want_sd[k])]
-                    check(not differ, f"checkpoint_epoch_00001.pyth differs from run 1's model "
-                          f"in {len(differ)} tensors, e.g. {differ[:3]}")
-                    del fresh
-                del state
-            names = sorted(os.listdir(ckpts))
-            for name in ("checkpoint_epoch_00001.pyth", "checkpoint_epoch_00002.pyth",
-                         "checkpoint_best.pyth"):
-                check(name in names, f"{name} missing from {names}")
+            state = train(cfg)
+            torch.cuda.synchronize()
+            counts = read_launches()
+            wall = time.perf_counter() - t0
+            for name, n in counts.items():
+                launches[name] += n
+            iters = stats.of("train_iter", since)
+            epochs = stats.of("train_epoch", since)
+            check(len(epochs) == 1, f"run {run} logged {len(epochs)} train epochs")
+            # The epoch's record follows the flush that waits for its last step.
+            walls.append((wall, epochs[0]["_at"] - stats.starts[-1]))
+            print(f"[train(cfg)] run {run}: MAX_EPOCH {max_epoch}, train_iter records "
+                  f"{[(r['epoch'], r['iter']) for r in iters]}, last step {state.step}, "
+                  f"launches {counts}, {wall:.1f} s in train(cfg)", flush=True)
+            want = {name: (EPOCH_LAUNCHES if name == "logmel_bf16" else 0) for name in REPLACES}
+            check(counts == want, f"run {run}: launches {counts}, expected {want}")
+            check(all(p.is_cuda for p in state.model.parameters()),
+                  f"run {run}: parameters off the card")
+            # Run 2 resumes at epoch 2: its 3 steps are that epoch's and end at step 6.
+            check([(r["epoch"], r["iter"]) for r in iters]
+                  == [(f"{run}/{max_epoch}", f"{i}/3") for i in (1, 2, 3)]
+                  and state.step == 3 * run,
+                  f"run {run} logged {iters} and ended at step {state.step}")
+            if run == 1:
+                fresh = build_model(cfg, "cuda")
+                fresh.load_state_dict(cu.load_checkpoint(
+                    os.path.join(ckpts, "checkpoint_epoch_00001.pyth"))["model_state"])
+                want_sd = state.model.state_dict()
+                differ = [k for k, v in fresh.state_dict().items()
+                          if not torch.equal(v, want_sd[k])]
+                check(not differ, f"checkpoint_epoch_00001.pyth differs from run 1's model "
+                      f"in {len(differ)} tensors, e.g. {differ[:3]}")
+                del fresh
+            del state
+        names = sorted(os.listdir(ckpts))
+        for name in ("checkpoint_epoch_00001.pyth", "checkpoint_epoch_00002.pyth",
+                     "checkpoint_best.pyth"):
+            check(name in names, f"{name} missing from {names}")
     finally:
         stats.__exit__()
 
@@ -785,6 +809,134 @@ def phase_train_cfg(card: str, step_ms: float) -> dict:
           f"{[round(w, 2) for w, _ in walls]}; train_entry at B={TRAIN_BATCH} (phase 4): "
           f"{step_ms:.3f} ms per step; loop / train_entry {it_ms / step_ms:.3f} (3-step epochs: "
           f"not a steady state) | {card}", flush=True)
+    return launches, cfg
+
+
+def _device_fds(pid: int) -> int:
+    """How many of process ``pid``'s open files are ``/dev/nvidia*``: a
+    process with a CUDA context holds some."""
+    fds = 0
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            fds += os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia")
+        except OSError:  # closed since the listing
+            pass
+    return fds
+
+
+def check_loader_workers(card: str, cfg) -> None:
+    """While the test loader's workers read, none of them holds a CUDA
+    context: ``nvidia-smi`` lists no worker among the card's compute
+    processes (and one process at most), and no worker has a ``/dev/nvidia*``
+    file open, while this process, the control, has."""
+    from asf_tpu_torch.data.loader import construct_loader
+
+    ld = construct_loader(cfg, "test")
+    try:
+        it = iter(ld)
+        next(it)
+        workers = ld.worker_pids()
+        smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+        listed = {int(x) for x in smi.stdout.split() if x.strip().isdigit()}
+        fds = {pid: _device_fds(pid) for pid in [os.getpid(), *workers]}
+    finally:
+        ld.close()
+    cores = len(os.sched_getaffinity(0))
+    print(f"[test(cfg)] loader: {len(workers)} worker processes on {cores} cores "
+          f"(os.sched_getaffinity); nvidia-smi compute processes {sorted(listed)} (rc "
+          f"{smi.returncode}), this process {os.getpid()} "
+          f"{'listed' if os.getpid() in listed else 'not listed (another pid namespace)'}; "
+          f"/dev/nvidia* files open: {fds} | {card}", flush=True)
+    check(len(workers) == LOADER_WORKERS, f"{len(workers)} live workers, not {LOADER_WORKERS}")
+    check(not listed & set(workers) and len(listed) <= 1,
+          f"nvidia-smi lists {sorted(listed)}: a loader worker holds a CUDA context")
+    check(fds[os.getpid()] > 0 and not any(fds[pid] for pid in workers),
+          f"/dev/nvidia* files open by process: {fds}")
+    check(not ld.worker_pids(), "workers alive after close()")
+
+
+def phase_test_cfg(card: str, cfg) -> dict:
+    """Phase 6: ``test(cfg)`` from phase 5's final checkpoint, in this
+    process and then through the ``run_net`` CLI; returns the in-process
+    run's launch counts."""
+    from asf_tpu_torch.engine import test
+    from asf_tpu_torch.tools.loop_probe import StatsLog, write_vggsound
+
+    cfg = cfg.clone()
+    root = os.path.dirname(cfg.OUTPUT_DIR)
+    cfg.TEST.NUM_ENSEMBLE_VIEWS = TEST_VIEWS
+    cfg.TEST.BATCH_SIZE = TEST_BATCH
+    cfg.TEST.CHECKPOINT_FILE_PATH = os.path.join(cfg.OUTPUT_DIR, "checkpoints",
+                                                 "checkpoint_epoch_00002.pyth")
+    cfg.TEST.SAVE_RESULTS_PATH = "test_scores.pkl"
+    t0 = time.perf_counter()
+    write_vggsound(root, cfg, 0, 0, FILE_SECS, n_test=TEST_FILES)
+    print(f"[test(cfg)] wrote {TEST_FILES} wav files of {FILE_SECS} s in "
+          f"{time.perf_counter() - t0:.1f} s; {TEST_VIEWS} views each, batches of {TEST_BATCH}",
+          flush=True)
+    check_loader_workers(card, cfg)
+
+    with StatsLog() as stats:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        preds, labels = test(cfg)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        wall = time.perf_counter() - t0
+    print(f"[test(cfg)] launches {launches}, {wall:.2f} s in test(cfg)", flush=True)
+    want = {name: (TEST_LAUNCHES if name == "logmel_bf16" else 0) for name in REPLACES}
+    check(launches == want, f"test(cfg): launches {launches}, expected {want}")
+    check(preds.shape == (TEST_FILES, cfg.MODEL.NUM_CLASSES[0]) and labels.shape == (TEST_FILES,),
+          f"scores {preds.shape}, labels {labels.shape}")
+    check(bool(np.isfinite(preds).all()), "non-finite ensembled scores")
+    sums = preds.sum(axis=1)
+    check(bool((np.abs(sums - TEST_VIEWS) <= 1e-3).all()),
+          f"ensembled rows sum to {sums.min()}..{sums.max()}, not {TEST_VIEWS} (one probability "
+          "row a view)")
+    check(not stats.of("test_warn"), f"clips with missing views: {stats.of('test_warn')}")
+    (final,) = stats.of("test_final")
+    path = os.path.join(cfg.OUTPUT_DIR, "scores", cfg.TEST.SAVE_RESULTS_PATH)
+    with open(path, "rb") as f:
+        saved = pickle.load(f)
+    check(set(saved) == {"output", "labels"}, f"score pickle keys {sorted(saved)}")
+    check(np.array_equal(saved["output"], preds) and np.array_equal(saved["labels"], labels),
+          "the score pickle differs from test(cfg)'s result")
+    top = torch.topk(torch.from_numpy(saved["output"]), 5, dim=1).indices
+    hit = top == torch.from_numpy(saved["labels"])[:, None]
+    recomputed = {f"top{k}_acc": f"{hit[:, :k].any(dim=1).double().mean().item() * 100:.2f}"
+                  for k in (1, 5)}
+    check(recomputed == {k: final[k] for k in recomputed},
+          f"top-k from the pickle {recomputed}, the meter's {final}")
+    iters = stats.of("test_iter")
+    check(len(iters) == TEST_LAUNCHES, f"{len(iters)} test_iter records")
+    steady = [r["time_diff"] for r in iters[1:]]
+    it_ms = statistics.median(steady) * 1e3
+    print(f"[test(cfg)] {TEST_FILES} clips x {TEST_VIEWS} views: ensembled rows sum to "
+          f"{sums.min():.6f}..{sums.max():.6f}; {final}; ms per test iteration {it_ms:.3f} "
+          f"(B={TEST_BATCH}, median of iterations 2-{len(iters)}, host clock, no sync a batch), "
+          f"{TEST_BATCH / it_ms * 1e3:.1f} clip views/s; every iteration (s, wait s): "
+          f"{[(round(r['time_diff'], 5), round(r['dt_data'], 5)) for r in iters]}; "
+          f"{TEST_FILES / wall:.2f} ensembled clips/s over all of test(cfg) | {card}", flush=True)
+
+    yaml_path = os.path.join(root, "test.yaml")
+    with open(yaml_path, "w") as f:
+        f.write(cfg.dump())
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "asf_tpu_torch.tools.run_net", "--cfg", yaml_path,
+         "TRAIN.ENABLE", "False", "TEST.ENABLE", "True", "TEST.SAVE_RESULTS_PATH", "cli.pkl"],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"run_net exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(os.path.join(cfg.OUTPUT_DIR, "scores", "cli.pkl"), "rb") as f:
+        cli = pickle.load(f)
+    diff = float(np.abs(cli["output"] - preds).max())
+    print(f"[test(cfg)] python -m asf_tpu_torch.tools.run_net --cfg test.yaml TRAIN.ENABLE False "
+          f"TEST.ENABLE True: exit 0 in {time.perf_counter() - t0:.1f} s, scores {diff:.3g} max "
+          f"abs from the in-process run (gated at {CLI_TOL})", flush=True)
+    check(diff <= CLI_TOL and np.array_equal(cli["labels"], labels),
+          f"the CLI's scores differ by {diff} > {CLI_TOL}")
     return launches
 
 
@@ -793,10 +945,12 @@ def main() -> None:
     kernels = phase_kernels(card)
     eval_launches, _ = phase_slice(card)
     train_launches, train_timing = phase_train(card)
-    loop_launches = phase_train_cfg(card, train_timing["flagship"]["ms"])
+    with tempfile.TemporaryDirectory() as root:
+        loop_launches, loop_cfg = phase_train_cfg(card, train_timing["flagship"]["ms"], root)
+        test_launches = phase_test_cfg(card, loop_cfg)
     check_instructions(card, sass, kernels)
     paths = {"eval": eval_launches, **{f"train {k}": v for k, v in train_launches.items()},
-             "train(cfg)": loop_launches}
+             "train(cfg)": loop_launches, "test(cfg)": test_launches}
     line = []
     for name, res in kernels.items():
         wide, batch = LINE_BATCH[name]

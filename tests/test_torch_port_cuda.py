@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card;
-the prefetcher's stream handling and ``train(cfg)``'s launches.
+the prefetcher's stream handling (fed by loader worker processes too) and
+the launches of ``train(cfg)`` and ``test(cfg)``.
 
 Imports no JAX, so it runs on a machine with a GPU and no JAX:
 
@@ -17,8 +18,10 @@ import pytest
 import torch
 from scipy.io import wavfile
 
-from asf_tpu_torch.data.prefetch import Prefetcher
+from asf_tpu_torch.data.loader import construct_loader, shuffle_dataset
+from asf_tpu_torch.data.prefetch import Prefetcher, prefetch
 from asf_tpu_torch.dsp.logmel import LogMelParams
+from asf_tpu_torch.engine import test as run_test
 from asf_tpu_torch.engine import train
 from asf_tpu_torch.entry import flagship_cfg, wide_window
 from asf_tpu_torch.ops import logmel as ops
@@ -243,24 +246,22 @@ def _prefetch_round_trip(depth):
             assert torch.equal(g["class_id"].cpu(), torch.from_numpy(h["labels"]["class_id"]))
 
 
-@pytest.mark.parametrize("precision,kernel", [("BFLOAT16", "logmel_bf16"),
-                                              ("HIGHEST", "logmel_f32")])
-def test_train_cfg_counts_its_launches(tmp_path, precision, kernel):
-    """A tiny SlowFast at the flagship geometry, B = 4: 12 train clips (3
-    steps), precise BN over 2 batches, 6 val clips (4 + 2): 7 launches."""
+def _tiny_vgg_cfg(tmp_path, precision, splits):
+    """A tiny SlowFast at the flagship geometry, B = 4, on seeded 1.5 s int16
+    wav files: ``splits`` maps each split to its clip count."""
     cfg = flagship_cfg()
     cfg.MODEL.NUM_CLASSES = [6]
     cfg.RESNET.DEPTH = 26
     cfg.RESNET.WIDTH_PER_GROUP = 8
     cfg.RESNET.NUM_BLOCK_TEMP_KERNEL = [[1, 1], [1, 1], [1, 1], [1, 1]]
     cfg.GPU.DSP_PRECISION = precision
-    cfg.TRAIN.BATCH_SIZE = 4
+    cfg.TRAIN.BATCH_SIZE = cfg.TEST.BATCH_SIZE = 4
     cfg.SOLVER.MAX_EPOCH = 1
     cfg.BN.USE_PRECISE_STATS = True
     cfg.BN.NUM_BATCHES_PRECISE = 2
     cfg.LOG_MODEL_INFO = False
     rng = np.random.default_rng(4)
-    for split, n in (("train", 12), ("val", 6)):
+    for split, n in splits.items():
         rows = []
         for i in range(n):
             wave = (rng.standard_normal(36000) * 3000).astype(np.int16)  # 1.5 s
@@ -270,13 +271,80 @@ def test_train_cfg_counts_its_launches(tmp_path, precision, kernel):
             pickle.dump(rows, f)
     cfg.VGGSOUND.AUDIO_DATA_DIR = cfg.VGGSOUND.ANNOTATIONS_DIR = str(tmp_path)
     cfg.VGGSOUND.TRAIN_LIST, cfg.VGGSOUND.VAL_LIST = "train.pkl", "val.pkl"
+    cfg.VGGSOUND.TEST_LIST = "test.pkl"
     cfg.OUTPUT_DIR = str(tmp_path / "out")
-    wrappers = [ops.logmel_f32, ops.logmel_bf16, ops.logmel_bf16_wide]
-    for w in wrappers:
+    return cfg
+
+
+WRAPPERS = [ops.logmel_f32, ops.logmel_bf16, ops.logmel_bf16_wide]
+
+
+def _launches():
+    return {w.__name__: w.launches for w in WRAPPERS}
+
+
+@pytest.mark.parametrize("precision,kernel", [("BFLOAT16", "logmel_bf16"),
+                                              ("HIGHEST", "logmel_f32")])
+def test_train_cfg_counts_its_launches(tmp_path, precision, kernel):
+    """A tiny SlowFast at the flagship geometry, B = 4: 12 train clips (3
+    steps), precise BN over 2 batches, 6 val clips (4 + 2): 7 launches."""
+    cfg = _tiny_vgg_cfg(tmp_path, precision, {"train": 12, "val": 6})
+    for w in WRAPPERS:
         w.launches = 0
     state = train(cfg)
     torch.cuda.synchronize()
-    assert {w.__name__: w.launches for w in wrappers} == {
-        w.__name__: (7 if w.__name__ == kernel else 0) for w in wrappers}
+    assert _launches() == {w.__name__: (7 if w.__name__ == kernel else 0) for w in WRAPPERS}
     assert state.step == 3 and next(state.model.parameters()).is_cuda
     assert os.path.exists(tmp_path / "out" / "checkpoints" / "checkpoint_epoch_00001.pyth")
+
+
+@pytest.mark.parametrize("precision,kernel", [("BFLOAT16", "logmel_bf16"),
+                                              ("HIGHEST", "logmel_f32")])
+def test_test_cfg_counts_its_launches(tmp_path, precision, kernel):
+    """5 test clips in 2 views, B = 4 (4 + 4 + 2): 3 launches; every clip
+    ensembles its 2 probability rows."""
+    cfg = _tiny_vgg_cfg(tmp_path, precision, {"test": 5})
+    cfg.TEST.NUM_ENSEMBLE_VIEWS = 2
+    for w in WRAPPERS:
+        w.launches = 0
+    preds, labels = run_test(cfg)
+    torch.cuda.synchronize()
+    assert _launches() == {w.__name__: (3 if w.__name__ == kernel else 0) for w in WRAPPERS}
+    assert preds.shape == (5, 6) and np.isfinite(preds).all()
+    np.testing.assert_allclose(preds.sum(axis=1), 2.0, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(labels, np.arange(5) % 6)
+    with open(tmp_path / "out" / "scores" / "test_scores.pkl", "rb") as f:
+        np.testing.assert_array_equal(pickle.load(f)["output"], preds)
+
+
+def test_prefetch_from_worker_processes_delivers_the_host_batches(tmp_path):
+    """Two epochs of the train split read by 2 worker processes and copied
+    through the prefetcher, each batch cloned behind a long kernel on every
+    other one, equal bit for bit to the batches read in this process."""
+    cfg = _tiny_vgg_cfg(tmp_path, "BFLOAT16", {"train": 12})
+    lds = {}
+    for workers in (0, 2):
+        cfg.DATA_LOADER.NUM_WORKERS = workers
+        lds[workers] = construct_loader(cfg, "train")
+    try:
+        for epoch in (0, 1):
+            for ld in lds.values():
+                shuffle_dataset(ld, epoch)
+            host = list(lds[0])
+            got = []
+            with prefetch(lds[2], "cuda") as src:
+                for i, batch in enumerate(src):
+                    if i % 2:
+                        torch.cuda._sleep(20_000_000)  # ~10 ms on the consumer's stream
+                    got.append({k: batch[k].clone() for k in ("waveform", "n_valid", "index")})
+            torch.cuda.synchronize()
+            assert len(got) == len(host) == 3
+            for g, h in zip(got, host):
+                assert g["waveform"].dtype == torch.int16 and g["waveform"].is_cuda
+                for k in g:
+                    assert torch.equal(g[k].cpu(), torch.from_numpy(h[k])), k
+        assert len(lds[2].worker_pids()) == 2
+    finally:
+        for ld in lds.values():
+            ld.close()
+    assert lds[2].worker_pids() == []

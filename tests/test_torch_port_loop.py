@@ -37,6 +37,7 @@ from asf_tpu_torch.checkpoint.convert import flax_variables_to_torch_state
 from asf_tpu_torch.checkpoint.pyth_names import load_into, torch_state_to_flax
 from asf_tpu_torch.config import get_cfg
 from asf_tpu_torch.data import loader
+from asf_tpu_torch.data import prefetch as prefetch_mod
 from asf_tpu_torch.engine import meters, train
 from asf_tpu_torch.engine import train_loop
 from asf_tpu_torch.engine.steps import TrainState, init_state, make_train_step
@@ -530,14 +531,14 @@ class _SlowLoader:
             yield {"waveform": np.zeros((2, 8), np.float32)}
 
 
-def test_train_epoch_logs_each_iteration_its_own_times():
+def test_train_epoch_logs_each_iteration_its_own_times(monkeypatch):
     """Iterations that wait for data alternate with iterations whose step is
     slow: a record that carried another iteration's times would miss the
     wait or the step of its own."""
     cfg = get_cfg()
     cfg.LOG_PERIOD = 1
     cfg.SOLVER.MAX_EPOCH = 1
-    cfg.GPU.PREFETCH_DEPTH = 0  # each batch's delay is the loop's data wait
+    monkeypatch.setattr(prefetch_mod, "DEPTH", 0)  # each batch's delay is the loop's data wait
     waits, steps = [0.15, 0.0, 0.15, 0.0], [0.0, 0.15, 0.0, 0.15]
     calls = iter(steps)
 
@@ -564,7 +565,8 @@ from scipy.io import wavfile
 sys.path.insert(0, {root!r})
 import chip_smoke  # noqa: F401
 from asf_tpu_torch.config import get_cfg
-from asf_tpu_torch.engine import train
+from asf_tpu_torch.engine import test, train
+from asf_tpu_torch.tools import run_net
 root = {data!r}
 rows = []
 for i in range(8):
@@ -580,13 +582,21 @@ for k, v in {cfg!r}.items():
         node = node[p]
     node[leaf] = v
 train(cfg, device="cpu")
-print(sorted(m for m in ("jax", "pandas", "yaml", "h5py", "asf_tpu") if m in sys.modules))
+test(cfg, device="cpu")
+with open(os.path.join(root, "run.yaml"), "w") as f:
+    f.write(cfg.dump())
+run_net.main(["--cfg", os.path.join(root, "run.yaml"), "--device", "cpu",
+              "TRAIN.ENABLE", "False", "TEST.SAVE_RESULTS_PATH", "cli.pkl"])
+print(sorted(m for m in ("jax", "pandas", "yaml", "h5py", "sklearn", "asf_tpu")
+             if m in sys.modules))
 """
 
 
 def test_train_path_imports_no_jax_pandas_yaml_or_h5py(tmp_path):
-    """``train(cfg)`` on list-of-dicts annotations, with ``chip_smoke`` imported,
-    in a fresh interpreter: none of the modules the card's machine lacks is loaded."""
+    """``train(cfg)`` on list-of-dicts annotations with 2 loader workers, then
+    ``test(cfg)``, then the ``run_net`` CLI testing from a YAML file, with
+    ``chip_smoke`` imported, in a fresh interpreter: none of the modules the
+    card's machine lacks (jax, pandas, yaml, h5py, sklearn) is loaded."""
     pcfg = _model_cfg(get_cfg(), False)
     keys = {"MODEL.NUM_CLASSES": [6], "RESNET.DEPTH": 26, "RESNET.WIDTH_PER_GROUP": 8,
             "RESNET.NUM_BLOCK_TEMP_KERNEL": pcfg.RESNET.NUM_BLOCK_TEMP_KERNEL,
@@ -599,6 +609,7 @@ def test_train_path_imports_no_jax_pandas_yaml_or_h5py(tmp_path):
             "BN.USE_PRECISE_STATS": True, "BN.NUM_BATCHES_PRECISE": 1,
             "VGGSOUND.AUDIO_DATA_DIR": str(tmp_path), "VGGSOUND.ANNOTATIONS_DIR": str(tmp_path),
             "VGGSOUND.TRAIN_LIST": "a.pkl", "VGGSOUND.VAL_LIST": "a.pkl",
+            "VGGSOUND.TEST_LIST": "a.pkl", "TEST.NUM_ENSEMBLE_VIEWS": 2,
             "OUTPUT_DIR": str(tmp_path / "out"), "LOG_MODEL_INFO": False,
             "GPU.COMPUTE_DTYPE": "float32", "DATA_LOADER.NUM_WORKERS": 2}
     code = _NO_FOREIGN_IMPORTS.format(root=str(ROOT), data=str(tmp_path), cfg=keys)
@@ -608,3 +619,5 @@ def test_train_path_imports_no_jax_pandas_yaml_or_h5py(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1] == "[]"
     assert os.path.exists(tmp_path / "out" / "checkpoints" / "checkpoint_epoch_00001.pyth")
+    for name in ("test_scores.pkl", "cli.pkl"):
+        assert os.path.exists(tmp_path / "out" / "scores" / name)
