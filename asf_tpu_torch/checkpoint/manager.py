@@ -9,9 +9,12 @@ generator, so a resumed run restores it to go on with the same stream.
 Files are ``checkpoint_epoch_{N:05d}.pyth`` (N = epoch + 1) and
 ``checkpoint_best.pyth`` under ``OUTPUT_DIR/checkpoints``.
 
-A ``.pyth`` that holds ``generator_state`` is the port's own and loads
-strictly; any other is a reference checkpoint and loads by name and shape
-through ``pyth_names.load_into``.
+Auto-resume and the test-time load take the port's own ``.pyth`` (one
+that holds ``generator_state``) strictly. ``TRAIN.CHECKPOINT_FILE_PATH``
+loads any ``.pyth`` by name and shape through ``pyth_names.load_into``, as
+the JAX package loads every ``.pyth`` (``asf_tpu/checkpoint/manager.py:170-175``):
+a VGG-Sound checkpoint seeds the trunk of a verb/noun model, and each leaf
+it cannot give (the heads) keeps its initial value with a warning.
 """
 
 from __future__ import annotations
@@ -88,11 +91,12 @@ def _is_port_checkpoint(ckpt) -> bool:
     return isinstance(ckpt, dict) and "generator_state" in ckpt
 
 
-def _load_model(model, ckpt, clear_name_patterns=()) -> None:
+def _load_model(model, ckpt) -> None:
+    """A port checkpoint strictly, a reference one by name and shape."""
     if _is_port_checkpoint(ckpt):
         model.load_state_dict(ckpt["model_state"], strict=True)
     else:
-        load_into(model, ckpt.get("model_state", ckpt), clear_name_patterns)
+        load_into(model, ckpt.get("model_state", ckpt))
 
 
 def _restore(state, ckpt) -> None:
@@ -108,11 +112,11 @@ def load_train_checkpoint(cfg, state) -> int:
 
     1. ``TRAIN.AUTO_RESUME`` and a checkpoint in ``OUTPUT_DIR``: the last one,
        whole (model, optimizer, step, generator).
-    2. ``TRAIN.CHECKPOINT_FILE_PATH``: a port checkpoint, with its optimizer,
-       step and generator unless ``TRAIN.CHECKPOINT_EPOCH_RESET``; or a
-       reference ``.pyth``, by name and shape after the
-       ``CHECKPOINT_CLEAR_NAME_PATTERN`` strings are cut from its names.
-       ``CHECKPOINT_EPOCH_RESET`` starts at epoch 0 and step 0.
+    2. ``TRAIN.CHECKPOINT_FILE_PATH``: any ``.pyth``, by name and shape after
+       the ``CHECKPOINT_CLEAR_NAME_PATTERN`` strings are cut from its names.
+       A port checkpoint whose every leaf was taken also restores its
+       optimizer, step and generator, unless ``TRAIN.CHECKPOINT_EPOCH_RESET``,
+       which starts at epoch 0 and step 0.
     3. Neither: epoch 0, ``state`` as it is.
     """
     if cfg.TRAIN.AUTO_RESUME and has_checkpoint(cfg.OUTPUT_DIR):
@@ -128,11 +132,12 @@ def load_train_checkpoint(cfg, state) -> int:
         return 0
     logger.info("Load initial weights from %s", path)
     ckpt = load_checkpoint(path)
-    _load_model(state.model, ckpt, tuple(cfg.TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN))
+    skipped = load_into(state.model, ckpt.get("model_state", ckpt),
+                        tuple(cfg.TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN))
     if cfg.TRAIN.CHECKPOINT_EPOCH_RESET:
         state.step = 0
         return 0
-    if _is_port_checkpoint(ckpt):
+    if _is_port_checkpoint(ckpt) and not skipped:
         _restore(state, ckpt)
     else:
         state.step = 0

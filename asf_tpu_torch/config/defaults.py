@@ -1,7 +1,7 @@
 """Default config tree of the PyTorch port.
 
-The nodes the eval and train slices, the VGG-Sound data path,
-``train(cfg)`` and ``test(cfg)`` read, copied key-for-key from
+The nodes the eval and train slices, the VGG-Sound and EPIC-KITCHENS data
+paths, ``train(cfg)`` and ``test(cfg)`` read, copied key-for-key from
 ``asf_tpu/config/defaults.py`` so that YAMLs written for the JAX package
 merge unchanged, plus a ``GPU`` node: the counterparts of
 ``TPU.COMPUTE_DTYPE``, ``TPU.DSP_PRECISION``, ``TPU.SPEC_AUGMENT`` and
@@ -138,6 +138,45 @@ _C.VGGSOUND.ANNOTATIONS_DIR = ""
 _C.VGGSOUND.TRAIN_LIST = "train.pkl"
 _C.VGGSOUND.VAL_LIST = "test.pkl"
 _C.VGGSOUND.TEST_LIST = "test.pkl"
+
+# ---------------------------------------------------------------------------
+# EPIC-KITCHENS dataset options
+# ---------------------------------------------------------------------------
+_C.EPICKITCHENS = CfgNode()
+# The port reads a directory of per-video mono wav files, <video_id>.wav
+# (data/epickitchens.py); the JAX package reads one HDF5 file.
+_C.EPICKITCHENS.AUDIO_DATA_FILE = ""
+_C.EPICKITCHENS.ANNOTATIONS_DIR = ""
+_C.EPICKITCHENS.ORIGINAL_TRAIN_LIST = "EPIC_100_train.pkl"
+_C.EPICKITCHENS.PROCESSED_TRAIN_LIST = "EPIC_100_train.pkl"
+_C.EPICKITCHENS.ORIGINAL_VAL_LIST = "EPIC_100_validation.pkl"
+_C.EPICKITCHENS.PROCESSED_VAL_LIST = "EPIC_100_validation.pkl"
+_C.EPICKITCHENS.ORIGINAL_TEST_LIST = "EPIC_100_validation.pkl"
+_C.EPICKITCHENS.PROCESSED_TEST_LIST = "EPIC_100_validation.pkl"
+_C.EPICKITCHENS.TRAIN_PLUS_VAL = False
+_C.EPICKITCHENS.TEST_SPLIT = "validation"
+_C.EPICKITCHENS.VERBS_FILE = ""
+_C.EPICKITCHENS.NOUNS_FILE = ""
+_C.EPICKITCHENS.MAKE_PLOTS = False
+_C.EPICKITCHENS.SKIP_PREPARATION = False
+_C.EPICKITCHENS.VERBS = []
+_C.EPICKITCHENS.ALL_VERBS = False
+_C.EPICKITCHENS.SMALL = False
+_C.EPICKITCHENS.SINGLE_BATCH = False
+
+_C.EPICKITCHENS.STATE = CfgNode()
+_C.EPICKITCHENS.STATE.PDDL_DOMAIN = ""
+_C.EPICKITCHENS.STATE.PDDL_PROBLEM = ""
+_C.EPICKITCHENS.PDDL_DOMAIN = ""
+_C.EPICKITCHENS.PDDL_PROBLEM = ""
+_C.EPICKITCHENS.STATE.NOUNS_EMBEDDINGS_FILE = ""
+
+_C.EPICKITCHENS.AUGMENT = CfgNode()
+_C.EPICKITCHENS.AUGMENT.BALANCE = True
+_C.EPICKITCHENS.AUGMENT.ENABLE = False
+_C.EPICKITCHENS.AUGMENT.FACTOR = 1.0
+
+_C.EPICKITCHENS.VIDEO_DURS = "EPIC_100_video_info.csv"
 
 # ---------------------------------------------------------------------------
 # Data loader options

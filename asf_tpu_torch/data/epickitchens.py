@@ -1,0 +1,241 @@
+"""EPIC-KITCHENS-100 dataset: one clip an item, from per-video wav files.
+
+Counterpart of ``asf_tpu/data/epickitchens.py:50-376`` (``EpicKitchens``,
+regular items) and ``:588-642`` (``get_refs_batch``). Splits ``train``,
+``val``, ``test`` (``TEST.NUM_ENSEMBLE_VIEWS`` records a row, each taking
+its own evenly spaced window) and ``train+val`` (both lists);
+``EPICKITCHENS.SINGLE_BATCH`` keeps the first ``TRAIN.BATCH_SIZE`` rows of
+each list. An action at least a clip long gives a clip placed inside it
+(``_placement``); a shorter one gives all its samples, and ``n_valid`` says
+how many are real. Samples outside the video read as zeros.
+
+The audio: ``EPICKITCHENS.AUDIO_DATA_FILE`` names a directory of mono wav
+files, ``<video_id>.wav`` (what ``asf_tpu/tools/extract_audio.py`` writes
+and ``asf_tpu/tools/wav_to_hdf5.py`` packs into the JAX package's HDF5
+archive). A mono int16 file is memory-mapped, and a read copies out the
+clip's pages only (``vggsound.load_wav``). The JAX package's host byte-LRU
+(``asf_tpu/data/cache.py``) exists for HDF5 region reads; memory-mapped
+files go through the page cache, and it is not ported.
+
+The int16 transfer (``GPU.INT16_TRANSFER``) is decided for the whole split:
+a row with a ``transformation`` (a host augmentation in float,
+``data/transforms.py``) or a video that is not mono int16 turns it off.
+
+The loader reads whole batches through ``get_batch(epoch, indices)``,
+each item bit for bit what ``__getitem__`` gives. Untransformed rows draw
+their starts in one vectorised call (``fast_rng``); a transformed row draws
+its start and then its transform from the item's own generator
+(``sampling.item_rng``), so it keeps the per-item draw.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from ..utils.logging import get_logger
+from .build import register_dataset
+from .records import EpicKitchensAudioRecord
+from .sampling import get_start_end_idx, get_start_end_idx_batch, item_rng
+from .transforms import get_transforms
+from .vggsound import load_wav, read_annotations
+
+logger = get_logger(__name__)
+
+MODES = ("train", "val", "test", "train+val")
+
+
+def audio_dir(path: str) -> str:
+    """``path`` if it is a directory of wav files; raises otherwise."""
+    if os.path.isdir(path):
+        return path
+    if path.endswith((".hdf5", ".h5")):
+        raise ValueError(
+            f"EPICKITCHENS.AUDIO_DATA_FILE = {path!r} is an HDF5 archive: the port reads a "
+            "directory of per-video mono wav files, <video_id>.wav, and no HDF5 (see "
+            "ROADMAP.md section 1 item 7, the HDF5 -> wav exporter)")
+    raise FileNotFoundError(f"EPICKITCHENS.AUDIO_DATA_FILE = {path!r} is not a directory "
+                            "of per-video wav files")
+
+
+@register_dataset("EpicKitchens")
+class EpicKitchens:
+    def __init__(self, cfg, mode: str):
+        if mode not in MODES:
+            raise ValueError(f"Split '{mode}' not supported for EpicKitchens")
+        self.cfg = cfg
+        self.mode = mode
+        self._num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS if mode == "test" else 1
+        self.clip_size = int(round(cfg.AUDIO_DATA.SAMPLING_RATE * cfg.AUDIO_DATA.CLIP_SECS))
+        self.clip_samples = self.clip_size - 1
+        self.int16 = bool(cfg.GPU.INT16_TRANSFER)
+        self.transforms = get_transforms()
+        self.audio_dir = audio_dir(cfg.EPICKITCHENS.AUDIO_DATA_FILE)
+        self._epoch = 0
+        self._construct_loader()
+        if self.int16:
+            self._probe_int16()
+
+    def set_epoch(self, epoch: int):
+        self._epoch = int(epoch)
+
+    # -- record list -------------------------------------------------------
+    def _annotation_files(self) -> list[str]:
+        c = self.cfg.EPICKITCHENS
+        names = {"train": [c.PROCESSED_TRAIN_LIST], "val": [c.PROCESSED_VAL_LIST],
+                 "test": [c.PROCESSED_TEST_LIST],
+                 "train+val": [c.PROCESSED_TRAIN_LIST, c.PROCESSED_VAL_LIST]}[self.mode]
+        return [os.path.join(c.ANNOTATIONS_DIR, n) for n in names]
+
+    def _construct_loader(self):
+        """The rows' tables: video, first sample, sample count, labels,
+        narration id and transformation of each annotation row; index ``i``
+        is row ``i // _num_clips`` in view ``i % _num_clips``."""
+        files = self._annotation_files()
+        for f in files:
+            if not os.path.exists(f):
+                raise FileNotFoundError(f"{f} dir not found")
+        records = []
+        for f in files:
+            rows = read_annotations(f, index_key="narration_id")
+            if self.cfg.EPICKITCHENS.SINGLE_BATCH:
+                rows = rows[: self.cfg.TRAIN.BATCH_SIZE]
+            records += [EpicKitchensAudioRecord(row, self.cfg) for row in rows]
+        if not records:
+            raise ValueError(f"Failed to load EPIC-KITCHENS split {self.mode} from {files}")
+        self._video = [r.untrimmed_video_name for r in records]
+        self._start = np.asarray([r.start_audio_sample for r in records], np.int64)
+        self._num = np.asarray([r.num_audio_samples for r in records], np.int64)
+        labels = [r.label for r in records]
+        self._labels = {k: np.asarray([lab[k] for lab in labels]) for k in ("verb", "noun")}
+        self._narration = [r.metadata["narration_id"] for r in records]
+        self._transformation = [r.transformation for r in records]
+        logger.info("Constructed EpicKitchens %s (size %d) from %s", self.mode, len(self), files)
+
+    def _probe_int16(self):
+        """Turns the int16 transfer off for the split where a row has a
+        transformation (float augmentation leaves the 16-bit grid) or a
+        video is not mono int16 PCM, so that every batch has one dtype."""
+        if any(t != "none" for t in self._transformation):
+            logger.warning("GPU.INT16_TRANSFER disabled for EpicKitchens %s: waveform "
+                           "transformations present (float-domain augmentation leaves the "
+                           "16-bit PCM grid)", self.mode)
+            self.int16 = False
+            return
+        from scipy.io import wavfile
+
+        for video in dict.fromkeys(self._video):
+            try:
+                _, data = wavfile.read(self._path(video), mmap=True)
+            except (FileNotFoundError, ValueError):
+                continue  # the item raises the real IO error
+            if data.dtype != np.int16 or data.ndim != 1:
+                logger.warning("GPU.INT16_TRANSFER disabled for EpicKitchens %s: %s is %s/%dD "
+                               "(need mono int16 PCM split-wide)", self.mode, video,
+                               data.dtype, data.ndim)
+                self.int16 = False
+                return
+
+    # -- audio -------------------------------------------------------------
+    def _path(self, video: str) -> str:
+        return os.path.join(self.audio_dir, f"{video}.wav")
+
+    def _read_region(self, video: str, start: int, end: int) -> np.ndarray:
+        """Samples ``[start, end)`` of ``video``, zeros outside the video:
+        raw int16 under the int16 transfer, else float32."""
+        samples, sr = load_wav(self._path(video), keep_int16=True)
+        if sr != self.cfg.AUDIO_DATA.SAMPLING_RATE:
+            raise ValueError(f"Audio sampling rate ({sr}) of {video} does not match target "
+                             f"({self.cfg.AUDIO_DATA.SAMPLING_RATE})")
+        a, b = max(0, start), min(len(samples), end)
+        out = np.zeros(end - start, np.int16 if self.int16 else np.float32)
+        if b > a:
+            chunk = samples[a:b]
+            if not self.int16 and chunk.dtype == np.int16:
+                chunk = chunk.astype(np.float32) / 32768.0
+            out[a - start : b - start] = chunk
+        return out
+
+    # -- items -------------------------------------------------------------
+    def _views(self, indices: np.ndarray) -> np.ndarray:
+        """Each item's view: -1 (a uniform draw) outside the test split."""
+        if self.mode == "test":
+            return indices % self._num_clips
+        return np.full(len(indices), -1, np.int64)
+
+    def _placement(self, index: int, rng) -> tuple[int, int]:
+        """(first sample, valid samples) of item ``index``, its start drawn
+        from ``rng``: the JAX package's ``_clip_for_record``."""
+        row = index // self._num_clips
+        start, num = int(self._start[row]), int(self._num[row])
+        if num < self.clip_size:
+            return start, max(0, num)  # stop <= start annotations give no samples
+        start_idx, _ = get_start_end_idx(
+            num, self.clip_size, int(self._views(np.asarray([index]))[0]),
+            self.cfg.TEST.NUM_ENSEMBLE_VIEWS, start_sample=start, rng=rng,
+        )
+        return int(start_idx), self.clip_samples
+
+    def _placements(self, epoch: int, indices: np.ndarray):
+        """``_placement`` of every item in one call (the JAX package's
+        ``get_refs_batch``), each start drawn by ``fast_rng`` as
+        ``item_rng(RNG_SEED, epoch, index)`` would draw it."""
+        rows = indices // self._num_clips
+        start, num = self._start[rows], self._num[rows]
+        n_valid = np.maximum(0, num)
+        sampled = num >= self.clip_size
+        if sampled.any():
+            off, _ = get_start_end_idx_batch(
+                num[sampled], self.clip_size, self._views(indices[sampled]),
+                self.cfg.TEST.NUM_ENSEMBLE_VIEWS, self.cfg.RNG_SEED, epoch, indices[sampled],
+            )
+            # int(a + u), the sum rounded in float64 first, as the scalar path does
+            start = start.copy()
+            start[sampled] = np.floor(start[sampled].astype(np.float64) + off).astype(np.int64)
+            n_valid[sampled] = self.clip_samples
+        return start, n_valid
+
+    def _item(self, index: int, start: int, n_valid: int, rng=None) -> dict:
+        """The item of ``index`` whose clip starts at ``start``: ``n_valid``
+        samples, transformed where its row says so (drawing from ``rng``),
+        zero-padded to ``clip_samples``."""
+        row = index // self._num_clips
+        wave = np.zeros(self.clip_samples, np.int16 if self.int16 else np.float32)
+        region = self._read_region(self._video[row], int(start), int(start) + int(n_valid))
+        clip, name = region, self._transformation[row]
+        if name != "none" and name in self.transforms:
+            clip = np.asarray(self.transforms[name](region, self.cfg.AUDIO_DATA.SAMPLING_RATE,
+                                                    rng=rng), np.float32)
+        wave[: len(region)] = clip[: self.clip_samples]
+        return {
+            "waveform": wave,
+            "n_valid": np.int32(n_valid),
+            "label": {k: v[row] for k, v in self._labels.items()},
+            "index": index,
+            "metadata": {"narration_id": self._narration[row]},
+        }
+
+    def __getitem__(self, index: int):
+        """Item ``index`` at the epoch of ``set_epoch``, placed and
+        transformed by its own ``item_rng``: the definition that
+        ``get_batch`` replays."""
+        rng = item_rng(self.cfg.RNG_SEED, self._epoch, index)
+        return self._item(index, *self._placement(index, rng), rng)
+
+    def get_batch(self, epoch: int, indices) -> list:
+        """The items ``indices`` of ``epoch``, each bit for bit what
+        ``__getitem__`` gives after ``set_epoch(epoch)``."""
+        indices = np.asarray([int(i) for i in indices], np.int64)
+        starts, n_valid = self._placements(epoch, indices)
+        items = []
+        for i, start, n in zip(indices.tolist(), starts, n_valid):
+            if self._transformation[i // self._num_clips] != "none":
+                rng = item_rng(self.cfg.RNG_SEED, epoch, i)
+                items.append(self._item(i, *self._placement(i, rng), rng))
+            else:
+                items.append(self._item(i, start, n))
+        return items
+
+    def __len__(self):
+        return len(self._video) * self._num_clips

@@ -1,9 +1,10 @@
 """Batch loader: whole batches read and collated in worker processes.
 
 Counterpart of ``asf_tpu/data/loader.py`` (``collate`` :39-126,
-``AsfLoader`` :129-358, ``construct_loader`` :361-392, ``shuffle_dataset``
-:395-397) for single-clip items; the GRU window chains come with the GRU
-slice. ``AsfLoader`` visits the indices in the JAX package's order
+``AsfLoader`` :129-299, ``construct_loader`` :302-330, ``shuffle_dataset``
+:333-335) for single-clip items of VGG-Sound and EPIC-KITCHENS (its
+``train+val`` split too); the GRU window chains come with the GRU slice.
+``AsfLoader`` visits the indices in the JAX package's order
 (``np.random.default_rng(seed + epoch)``, the wrap-pad and the rank split),
 so both packages see the same batches.
 
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 from torch.utils import data as tud
 
+from . import epickitchens as _epic  # noqa: F401  (registers the dataset)
 from . import vggsound as _vgg  # noqa: F401  (registers the dataset)
 from .build import build_dataset
 
@@ -49,7 +51,8 @@ PREFETCH_FACTOR = 2  # requests a worker holds at a time
 
 def collate(items: List[Dict[str, Any]]) -> Dict[str, Any]:
     """Stack single-clip items: waveform (B, S), n_valid (B,), labels as a
-    dict of stacked arrays, index (B,) and metadata lists."""
+    dict of stacked arrays (``class_id``, or ``verb`` and ``noun``), index
+    (B,) and metadata as lists (EPIC's ``narration_id``)."""
     first = items[0]
     if first["waveform"].ndim != 1:
         raise NotImplementedError("window-chain (GRU) items come with the GRU slice")
@@ -176,14 +179,14 @@ class AsfLoader:
 
 
 def construct_loader(cfg, split: str) -> AsfLoader:
-    """The loader of ``split``: train shuffles and drops the last partial
-    batch; val and test keep the order and every item."""
-    assert split in ["train", "val", "test"]
+    """The loader of ``split``: train and train+val shuffle and drop the
+    last partial batch; val and test keep the order and every item."""
+    assert split in ["train", "val", "test", "train+val"]
     if split == "test":
         dataset_name, batch_size = cfg.TEST.DATASET, cfg.TEST.BATCH_SIZE
     else:
         dataset_name, batch_size = cfg.TRAIN.DATASET, cfg.TRAIN.BATCH_SIZE
-    train = split == "train"
+    train = split in ("train", "train+val")
     return AsfLoader(
         build_dataset(dataset_name, cfg, split),
         batch_size=batch_size,

@@ -1,0 +1,78 @@
+"""Audio records: views over annotation rows.
+
+Copy of ``asf_tpu/data/records.py:21-86`` (``timestamp_to_sec``,
+``AudioRecord``, ``EpicKitchensAudioRecord``). The JAX records take a
+DataFrame's ``(index, row)`` pair and read the narration id from the index;
+these take one dict row that carries it under ``narration_id``
+(``vggsound.read_annotations(path, index_key="narration_id")`` gives such
+rows from a DataFrame and from a list of dicts alike). The GRU and PDDL
+records come with their slices.
+"""
+
+from __future__ import annotations
+
+import time
+from datetime import timedelta
+
+
+def timestamp_to_sec(timestamp: str) -> float:
+    """'HH:MM:SS.ff' -> seconds (any number of fractional digits)."""
+    time_parts = timestamp.split(".")
+    base_time = time_parts[0]
+    frac = time_parts[1].rstrip("0") if len(time_parts) > 1 else "0"
+    if not frac:
+        frac = "0"
+    x = time.strptime(base_time, "%H:%M:%S")
+    sec = float(
+        timedelta(hours=x.tm_hour, minutes=x.tm_min, seconds=x.tm_sec).total_seconds()
+    )
+    return sec + int(frac) / (10 ** len(frac))
+
+
+class AudioRecord:
+    def __init__(self, row: dict, cfg):
+        self.cfg = cfg
+        self._index = str(row["narration_id"])
+        self._series = row
+        self._sampling_rate = cfg.AUDIO_DATA.SAMPLING_RATE
+
+    @property
+    def participant(self):
+        return self._series["participant_id"]
+
+    @property
+    def untrimmed_video_name(self):
+        return self._series["video_id"]
+
+    @property
+    def start_audio_sample(self) -> int:
+        return int(round(timestamp_to_sec(self._series["start_timestamp"]) * self._sampling_rate))
+
+    @property
+    def end_audio_sample(self) -> int:
+        return int(round(timestamp_to_sec(self._series["stop_timestamp"]) * self._sampling_rate))
+
+    @property
+    def num_audio_samples(self) -> int:
+        return self.end_audio_sample - self.start_audio_sample
+
+    @property
+    def transformation(self) -> str:
+        return self._series["transformation"] if "transformation" in self._series else "none"
+
+    @property
+    def label(self):
+        raise NotImplementedError
+
+    @property
+    def metadata(self):
+        return {"narration_id": self._index}
+
+
+class EpicKitchensAudioRecord(AudioRecord):
+    @property
+    def label(self):
+        return {
+            "verb": self._series["verb_class"],
+            "noun": self._series["noun_class"],
+        }

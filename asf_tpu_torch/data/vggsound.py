@@ -59,14 +59,22 @@ def load_wav(path: str, keep_int16: bool = False) -> tuple[np.ndarray, int]:
     return data, sr
 
 
-def read_annotations(path: str) -> list[dict]:
+def read_annotations(path: str, index_key: str | None = None) -> list[dict]:
     """The rows of an annotation pickle as dicts: a DataFrame's records, or a
-    list of dicts as it is."""
+    list of dicts as it is. With ``index_key`` each row carries its key
+    under that name: a DataFrame's index (which its records drop; EPIC
+    pickles are indexed by ``narration_id``), or the key a list of dicts
+    must already hold."""
     with open(path, "rb") as f:
         obj = pickle.load(f)
     if callable(getattr(obj, "to_dict", None)) and hasattr(obj, "columns"):
-        return obj.to_dict("records")
+        rows = obj.to_dict("records")
+        if index_key is not None:
+            rows = [{**row, index_key: key} for key, row in zip(obj.index, rows)]
+        return rows
     if isinstance(obj, list) and all(isinstance(row, dict) for row in obj):
+        if index_key is not None and not all(index_key in row for row in obj):
+            raise KeyError(f"{path}: a row lacks its {index_key!r}")
         return obj
     raise TypeError(f"{path}: annotations must be a DataFrame or a list of dicts, "
                     f"not {type(obj).__name__}")

@@ -2,12 +2,12 @@
 
 Counterpart of ``asf_tpu/engine/eval_loop.py`` (``eval_epoch`` :78-160,
 ``_eval_legacy`` :313-376, ``build_val_meter`` :379-384) for the single-task
-head: each batch's probabilities and top-1/top-5 accuracies stay on the
-card, and the accuracies are read back once every ``LOG_PERIOD`` batches in
-one copy. The last batch runs with its real rows only (the JAX package pads
-it and masks the pad rows for XLA's static shapes). The plots, the JAX
-package's ``DeviceValCache`` and its fused K-step path are not ported; the
-verb/noun meters come with the EPIC slice.
+and the verb/noun heads: each batch's probabilities and top-1/top-5
+accuracies (verb, noun and action for verb/noun) stay on the card, and the
+accuracies are read back once every ``LOG_PERIOD`` batches in one copy.
+The last batch runs with its real rows only (the JAX package pads it and
+masks the pad rows for XLA's static shapes). The plots, the JAX
+package's ``DeviceValCache`` and its fused K-step path are not ported.
 """
 
 from __future__ import annotations
@@ -16,22 +16,26 @@ import torch
 
 from ..data.prefetch import prefetch
 from . import metrics
-from .meters import ValMeter
+from .meters import EPICValMeter, ValMeter
 from .steps import is_multitask
 
 
 @torch.inference_mode()
 def eval_epoch(val_loader, model, eval_step, val_meter, cur_epoch, cfg, device):
-    """Returns ``(is_best, {"top1_acc": ...})`` from the val meter."""
+    """Returns ``(is_best, top-1 accuracies)`` from the val meter."""
     log_period = max(1, cfg.LOG_PERIOD)
-    pending = []  # (iteration, (top1 acc, top5 acc) on the card, rows, host times)
+    multitask = isinstance(val_meter, EPICValMeter)
+    pending = []  # (iteration, accuracies on the card, rows, host times)
 
     def flush():
         if not pending:
             return
         accs = torch.stack([a for _, a, _, _ in pending]).cpu().tolist()
-        for (it, _, rows, times), (k1, k5) in zip(pending, accs):
-            val_meter.update_stats(100.0 - k1, 100.0 - k5, rows)
+        for (it, _, rows, times), acc in zip(pending, accs):
+            if multitask:  # (verb, noun, action) top-1, then top-5
+                val_meter.update_stats(acc[:3], acc[3:], rows)
+            else:
+                val_meter.update_stats(100.0 - acc[0], 100.0 - acc[1], rows)
             val_meter.log_iter_stats(cur_epoch, it, times)
         pending.clear()
 
@@ -41,10 +45,9 @@ def eval_epoch(val_loader, model, eval_step, val_meter, cur_epoch, cfg, device):
         for cur_iter, batch in enumerate(src):
             val_meter.data_toc()
             probs = eval_step(model, batch)
-            labels = batch["labels"]["class_id"]
-            accs = torch.stack(metrics.topk_accuracies(probs, labels, (1, 5)))
+            accs = torch.stack(_accuracies(probs, batch["labels"], multitask))
             val_meter.iter_toc()
-            pending.append((cur_iter, accs, labels.shape[0], val_meter.iter_times()))
+            pending.append((cur_iter, accs, batch["n_valid"].shape[0], val_meter.iter_times()))
             if (cur_iter + 1) % log_period == 0:
                 flush()
             val_meter.iter_tic()
@@ -56,7 +59,20 @@ def eval_epoch(val_loader, model, eval_step, val_meter, cur_epoch, cfg, device):
     return is_best, top1
 
 
+def _accuracies(probs, labels: dict, multitask: bool) -> list:
+    """Top-1 and top-5 accuracies, 0-d tensors on the card: of ``class_id``,
+    or verb, noun and action top-1 then top-5."""
+    if not multitask:
+        return metrics.topk_accuracies(probs, labels["class_id"], (1, 5))
+    verb, noun = labels["verb"], labels["noun"]
+    v1, v5 = metrics.topk_accuracies(probs[0], verb, (1, 5))
+    n1, n5 = metrics.topk_accuracies(probs[1], noun, (1, 5))
+    a1, a5 = metrics.multitask_topk_accuracies(probs, (verb, noun), (1, 5))
+    return [v1, n1, a1, v5, n5, a5]
+
+
 def build_val_meter(cfg, max_iter: int):
+    """The verb/noun meter for a verb/noun head, else the single-task one."""
     if is_multitask(cfg):
-        raise NotImplementedError("the verb/noun val meter comes with the EPIC slice")
+        return EPICValMeter(max_iter, cfg)
     return ValMeter(max_iter, cfg)

@@ -1,8 +1,10 @@
 """Meters: windowed scalars and the train and val epoch stats.
 
 Counterpart of ``asf_tpu/engine/meters.py:29-245`` (``Timer``,
-``ScalarMeter``, ``TrainMeter``, ``ValMeter``, ``mem_stats``) and of its
-single-task ``TestMeter`` (:393-460), with the same ``json_stats`` records
+``ScalarMeter``, ``TrainMeter``, ``ValMeter``, ``mem_stats``), of its
+single-task ``TestMeter`` (:393-460) and of the verb/noun meters
+(``EPICTrainMeter``, ``EPICValMeter``, ``EPICTestMeter``, :245-537, without
+their state-head parts), with the same ``json_stats`` records
 (``_type``, ``epoch``, ``iter``, ``dt``, ``dt_data``, ``dt_net``, ``eta``,
 ``top1_err``, ``top5_err``, ``loss``, ``lr``; ``test_iter`` with
 ``cur_iter`` and ``time_diff``, ``test_final`` with ``top1_acc`` and
@@ -10,8 +12,10 @@ single-task ``TestMeter`` (:393-460), with the same ``json_stats`` records
 ``dt`` and ``dt_data``, ``test_iter`` records ``dt_data``, and a test
 iteration is logged every ``LOG_PERIOD`` (the JAX package: every 20).
 Memory: the card's peak allocation (``gpu_mem``, the upstream name) and the
-host's resident set. The verb/noun, state and sliding-window meters come
-with their slices.
+host's resident set. The verb/noun meters keep ``verb``, ``noun`` and
+``action`` (both right) top-1 and top-5 accuracies; an EPIC val epoch is
+best when its action top-1 is above every earlier epoch's. The state and
+sliding-window meters come with their slices.
 
 The loops log an iteration's stats at a later flush, once its numbers are
 off the card, so they take the iteration's times (``iter_times()``) at its
@@ -282,12 +286,15 @@ class TestMeter:
         log_json_stats({"_type": "test_iter", "cur_iter": f"{cur_iter + 1}",
                         "time_diff": dt, "dt_data": dt_data})
 
-    def finalize_metrics(self, ks=(1, 5)):
-        """Logs the ``test_final`` top-k accuracies (and a ``test_warn`` record
-        when a clip lacks views); returns (ensembled scores, labels)."""
+    def _warn_incomplete(self):
         if not np.all(self.clip_count == self.num_clips):
             log_json_stats({"_type": "test_warn", "msg": "clip count incomplete",
                             "incomplete": int((self.clip_count != self.num_clips).sum())})
+
+    def finalize_metrics(self, ks=(1, 5)):
+        """Logs the ``test_final`` top-k accuracies (and a ``test_warn`` record
+        when a clip lacks views); returns (ensembled scores, labels)."""
+        self._warn_incomplete()
         accs = metrics.topk_accuracies(torch.from_numpy(self.audio_preds),
                                        torch.from_numpy(self.audio_labels), ks)
         self.stats = {"_type": "test_final"}
@@ -295,3 +302,193 @@ class TestMeter:
             self.stats[f"top{k}_acc"] = f"{float(acc):.2f}"
         log_json_stats(self.stats)
         return self.audio_preds.copy(), self.audio_labels.copy()
+
+
+_TASKS = ("verb", "noun", "action")
+_ACCS = tuple(f"{t}_top{k}" for t in _TASKS for k in (1, 5))
+
+
+class _EPICAccuracies:
+    """Windowed and summed verb, noun and action top-1/top-5 accuracies."""
+
+    def _init_accs(self, window: int):
+        self.accs = {k: ScalarMeter(window) for k in _ACCS}
+        self.correct = {k: 0.0 for k in _ACCS}
+        self.num_samples = 0
+
+    def _reset_accs(self):
+        for m in self.accs.values():
+            m.reset()
+        for k in self.correct:
+            self.correct[k] = 0.0
+        self.num_samples = 0
+
+    def _add_accs(self, top1_acc, top5_acc, mb_size):
+        """top1_acc, top5_acc: (verb, noun, action) accuracies in percent."""
+        for i, name in enumerate(_TASKS):
+            self.accs[f"{name}_top1"].add_value(top1_acc[i])
+            self.accs[f"{name}_top5"].add_value(top5_acc[i])
+            self.correct[f"{name}_top1"] += top1_acc[i] * mb_size
+            self.correct[f"{name}_top5"] += top5_acc[i] * mb_size
+        self.num_samples += mb_size
+
+
+class EPICTrainMeter(_BaseEpochMeter, _EPICAccuracies):
+    """Verb/noun/action train meter: the windowed accuracies and the
+    ``loss``, ``verb_loss`` and ``noun_loss`` of each iteration, their
+    means over the epoch."""
+
+    LOSSES = ("loss", "verb_loss", "noun_loss")
+
+    def __init__(self, epoch_iters: int, cfg):
+        super().__init__(epoch_iters, cfg)
+        self._init_accs(cfg.LOG_PERIOD)
+        self.lr = 0.0
+        self.losses = {n: ScalarMeter(cfg.LOG_PERIOD) for n in self.LOSSES}
+        self.loss_totals = {n: 0.0 for n in self.LOSSES}
+
+    def reset(self):
+        self._reset_accs()
+        for m in self.losses.values():
+            m.reset()
+        for k in self.loss_totals:
+            self.loss_totals[k] = 0.0
+
+    def update_stats(self, top1_acc, top5_acc, losses: Dict[str, float], lr, mb_size):
+        """``losses`` may hold more (``grad_norm``); the meter takes its own."""
+        self.lr = lr
+        for k in self.LOSSES:
+            self.losses[k].add_value(losses[k])
+            self.loss_totals[k] += losses[k] * mb_size
+        self._add_accs(top1_acc, top5_acc, mb_size)
+
+    def log_iter_stats(self, cur_epoch, cur_iter, times=None):
+        if (cur_iter + 1) % self.cfg.LOG_PERIOD != 0:
+            return
+        dt, dt_data, dt_net = times or self.iter_times()
+        stats = {
+            "_type": "train_iter",
+            "epoch": f"{cur_epoch + 1}/{self.cfg.SOLVER.MAX_EPOCH}",
+            "iter": f"{cur_iter + 1}/{self.epoch_iters}",
+            "dt": dt,
+            "dt_data": dt_data,
+            "dt_net": dt_net,
+            "eta": _eta(dt, self.max_epoch - (cur_epoch * self.epoch_iters + cur_iter + 1)),
+            "lr": self.lr,
+        }
+        for k, m in self.accs.items():
+            stats[f"{k}_acc"] = m.get_win_median()
+        for k, m in self.losses.items():
+            stats[k] = m.get_win_median()
+        log_json_stats({**stats, **mem_stats()})
+
+    def log_epoch_stats(self, cur_epoch):
+        n = max(self.num_samples, 1)
+        stats = {
+            "_type": "train_epoch",
+            "epoch": f"{cur_epoch + 1}/{self.cfg.SOLVER.MAX_EPOCH}",
+            "lr": self.lr,
+        }
+        for k, v in self.correct.items():
+            stats[f"{k}_acc"] = v / n
+        for k, v in self.loss_totals.items():
+            stats[k] = v / n
+        log_json_stats(stats)
+
+
+class EPICValMeter(_BaseEpochMeter, _EPICAccuracies):
+    """Verb/noun/action val meter; an epoch is best when its action top-1
+    accuracy is above every earlier epoch's."""
+
+    def __init__(self, max_iter: int, cfg):
+        super().__init__(max_iter, cfg)
+        self._init_accs(cfg.LOG_PERIOD)
+        self.max_top1_acc = {name: 0.0 for name in _TASKS}
+
+    def reset(self):
+        self._reset_accs()
+
+    def update_stats(self, top1_acc, top5_acc, mb_size):
+        self._add_accs(top1_acc, top5_acc, mb_size)
+
+    def log_iter_stats(self, cur_epoch, cur_iter, times=None):
+        if (cur_iter + 1) % self.cfg.LOG_PERIOD != 0:
+            return
+        dt, dt_data, _ = times or self.iter_times()
+        stats = {
+            "_type": "val_iter",
+            "epoch": f"{cur_epoch + 1}/{self.cfg.SOLVER.MAX_EPOCH}",
+            "iter": f"{cur_iter + 1}/{self.epoch_iters}",
+            "dt": dt,
+            "dt_data": dt_data,
+        }
+        for k, m in self.accs.items():
+            stats[f"{k}_acc"] = m.get_win_median()
+        log_json_stats(stats)
+
+    def log_epoch_stats(self, cur_epoch):
+        n = max(self.num_samples, 1)
+        top1 = {name: self.correct[f"{name}_top1"] / n for name in _TASKS}
+        top5 = {name: self.correct[f"{name}_top5"] / n for name in _TASKS}
+        is_best = top1["action"] > self.max_top1_acc["action"]
+        for name in _TASKS:
+            self.max_top1_acc[name] = max(self.max_top1_acc[name], top1[name])
+        stats = {"_type": "val_epoch", "epoch": f"{cur_epoch + 1}/{self.cfg.SOLVER.MAX_EPOCH}"}
+        for name in _TASKS:
+            stats[f"{name}_top1_acc"] = top1[name]
+            stats[f"{name}_top5_acc"] = top5[name]
+            stats[f"max_{name}_top1_acc"] = self.max_top1_acc[name]
+        log_json_stats(stats)
+        return is_best, {f"{k}_top1_acc": v for k, v in top1.items()}
+
+
+class EPICTestMeter(TestMeter):
+    """Multi-view ensembling of a verb/noun test set: each clip's verb and
+    noun scores summed or maxed into float64 rows, its labels and its
+    narration id kept."""
+
+    def __init__(self, num_audios: int, num_clips: int, num_cls, overall_iters: int,
+                 ensemble_method: str = "sum", log_period: int = 20):
+        super().__init__(num_audios, num_clips, num_cls[0], overall_iters, ensemble_method,
+                         log_period)
+        self.verb_preds = self.audio_preds
+        self.noun_preds = np.zeros((num_audios, num_cls[1]), np.float64)
+        self.verb_labels = self.audio_labels
+        self.noun_labels = np.zeros((num_audios,), np.int64)
+        self.metadata = np.empty(num_audios, dtype=object)
+
+    def update_stats(self, preds, labels, metadata, clip_ids):
+        """preds, labels: (verb, noun) pairs; metadata: the batch's, with
+        ``narration_id`` (or None)."""
+        vid = np.asarray(clip_ids) // self.num_clips
+        verb_l, noun_l = np.asarray(labels[0]), np.asarray(labels[1])
+        seen = self.clip_count[vid] > 0
+        self.noun_labels[vid[~seen]] = noun_l[~seen]
+        if not (self.noun_labels[vid] == noun_l).all():
+            raise AssertionError("the views of a clip carry different noun labels")
+        if metadata is not None and "narration_id" in metadata:
+            self.metadata[vid] = np.asarray(metadata["narration_id"], dtype=object)
+        combine = np.add.at if self.ensemble_method == "sum" else np.maximum.at
+        combine(self.noun_preds, vid, np.asarray(preds[1]))
+        super().update_stats(preds[0], verb_l, clip_ids)  # verb scores, labels and the count
+
+    def finalize_metrics(self, ks=(1, 5)):
+        """Logs the ``test_final`` verb, noun and action top-k accuracies (and
+        a ``test_warn`` record when a clip lacks views); returns ((verb,
+        noun) scores, (verb, noun) labels, narration ids)."""
+        self._warn_incomplete()
+        verb = metrics.topk_accuracies(torch.from_numpy(self.verb_preds),
+                                       torch.from_numpy(self.verb_labels), ks)
+        noun = metrics.topk_accuracies(torch.from_numpy(self.noun_preds),
+                                       torch.from_numpy(self.noun_labels), ks)
+        action = metrics.multitask_topk_accuracies(
+            (torch.from_numpy(self.verb_preds), torch.from_numpy(self.noun_preds)),
+            (torch.from_numpy(self.verb_labels), torch.from_numpy(self.noun_labels)), ks)
+        self.stats = {"_type": "test_final"}
+        for k, v, n, a in zip(ks, verb, noun, action):
+            self.stats[f"verb_top{k}_acc"] = f"{float(v):.2f}"
+            self.stats[f"noun_top{k}_acc"] = f"{float(n):.2f}"
+            self.stats[f"action_top{k}_acc"] = f"{float(a):.2f}"
+        log_json_stats(self.stats)
+        return ((self.verb_preds.copy(), self.noun_preds.copy()),
+                (self.verb_labels.copy(), self.noun_labels.copy()), self.metadata.copy())

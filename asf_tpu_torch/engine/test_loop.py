@@ -1,13 +1,16 @@
 """Testing: ``test(cfg)`` scores every view of every test clip and ensembles them.
 
 Counterpart of ``asf_tpu/engine/test_loop.py`` (``perform_test`` :40,
-``_save_scores`` :142, ``test`` :171) for the single-task VGG-Sound branch:
-load the test checkpoint (``checkpoint/manager.py:load_test_checkpoint``),
-serve every batch of the test loader through ``steps.make_eval_step`` (the
-front end's kernel on the card), ensemble each clip's
-``TEST.NUM_ENSEMBLE_VIEWS`` views in a ``TestMeter``, pickle ``{output,
-labels}`` to ``OUTPUT_DIR/scores/TEST.SAVE_RESULTS_PATH`` and log the
-top-k accuracies and ``vggsound_stats``.
+``_save_scores`` :142, ``test`` :171) for the single-task and the
+verb/noun heads: load the test checkpoint
+(``checkpoint/manager.py:load_test_checkpoint``), serve every batch of the
+test loader through ``steps.make_eval_step`` (the front end's kernel on the
+card), ensemble each clip's ``TEST.NUM_ENSEMBLE_VIEWS`` views in a
+``TestMeter`` (verb/noun: an ``EPICTestMeter``, which keeps each clip's
+``narration_id``), pickle ``{output, labels}`` (verb/noun:
+``{verb_output, noun_output, labels: {verb, noun}, narration_id}``) to
+``OUTPUT_DIR/scores/TEST.SAVE_RESULTS_PATH`` and log the top-k accuracies
+(and, for VGG-Sound, ``vggsound_stats``).
 
 The loop does not wait for the card a batch: each batch's probabilities,
 labels and clip ids are queued as one copy into pinned host memory with an
@@ -15,7 +18,7 @@ event, and the meter takes them once that event has completed. The ragged
 last batch runs with its real rows. The JAX package's padding to a static
 batch (``pad_batch_to``), its K-step ``multi_eval`` and its device store
 (``resolve_offsets``) exist for XLA and the TPU's host link and are not
-ported; the verb/noun and sliding-window meters come with the EPIC slice.
+ported; the sliding-window meter comes with its slice.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from ..models import build_model
 from ..utils.logging import get_logger, setup_logging
 from ..utils.torch_setup import disable_tf32, resolve_device
 from . import metrics
-from .meters import TestMeter
+from .meters import EPICTestMeter, TestMeter
 from .steps import is_multitask, make_eval_step
 
 logger = get_logger(__name__)
@@ -42,16 +45,23 @@ logger = get_logger(__name__)
 @torch.inference_mode()
 def perform_test(test_loader, model, eval_step, test_meter, device):
     """Scores every batch of ``test_loader``; returns the meter's
-    ``finalize_metrics()``: (ensembled scores, labels)."""
+    ``finalize_metrics()``: (ensembled scores, labels), and for verb/noun
+    the (verb, noun) pairs of both and the narration ids."""
     cuda = torch.device(device).type == "cuda"
-    fetches = []  # (iteration, host times, (probs, labels, clip ids) on the host, event)
+    multitask = isinstance(test_meter, EPICTestMeter)
+    # (iteration, host times, (probs..., labels..., clip ids) on the host, metadata, event)
+    fetches = []
 
     def apply_ready(block: bool):
-        while fetches and (block or fetches[0][3] is None or fetches[0][3].query()):
-            it, times, (probs, labels, clip_ids), event = fetches.pop(0)
+        while fetches and (block or fetches[0][4] is None or fetches[0][4].query()):
+            it, times, host, metadata, event = fetches.pop(0)
             if event is not None:
                 event.synchronize()
-            test_meter.update_stats(probs.numpy(), labels.numpy(), clip_ids.numpy())
+            host = [t.numpy() for t in host]
+            if multitask:
+                test_meter.update_stats(host[0:2], host[2:4], metadata, host[4])
+            else:
+                test_meter.update_stats(*host)
             test_meter.log_iter_stats(it, times)
 
     src = prefetch(test_loader, device)
@@ -60,14 +70,17 @@ def perform_test(test_loader, model, eval_step, test_meter, device):
         for cur_iter, batch in enumerate(src):
             test_meter.data_toc()
             probs = eval_step(model, batch)
-            host = tuple(t.to("cpu", non_blocking=True)
-                         for t in (probs, batch["labels"]["class_id"], batch["index"]))
+            labels = batch["labels"]
+            out = ([*probs, labels["verb"], labels["noun"]] if multitask
+                   else [probs, labels["class_id"]])
+            host = [t.to("cpu", non_blocking=True) for t in (*out, batch["index"])]
             event = None
             if cuda:
                 event = torch.cuda.Event()
                 event.record()
             test_meter.iter_toc()
-            fetches.append((cur_iter, test_meter.iter_times(), host, event))
+            fetches.append((cur_iter, test_meter.iter_times(), host, batch.get("metadata"),
+                            event))
             apply_ready(block=False)
             test_meter.iter_tic()
         apply_ready(block=True)
@@ -76,30 +89,39 @@ def perform_test(test_loader, model, eval_step, test_meter, device):
     return test_meter.finalize_metrics()
 
 
-def _save_scores(cfg, results) -> str:
+def _save_scores(cfg, results, multitask: bool) -> str:
     """Pickles ``{output, labels}`` (the schema ``scripts/score_parity.py``
-    reads) to ``OUTPUT_DIR/scores/``; returns its path."""
+    reads), or for verb/noun ``{verb_output, noun_output, labels: {verb,
+    noun}, narration_id}``, to ``OUTPUT_DIR/scores/``; returns its path."""
     scores_dir = os.path.join(cfg.OUTPUT_DIR, "scores")
     os.makedirs(scores_dir, exist_ok=True)
     path = os.path.join(scores_dir, cfg.TEST.SAVE_RESULTS_PATH or "test_scores.pkl")
-    preds, labels = results
+    if multitask:
+        (verb_p, noun_p), (verb_l, noun_l), narration_ids = results
+        payload = {"verb_output": verb_p, "noun_output": noun_p,
+                   "labels": {"verb": verb_l, "noun": noun_l}, "narration_id": narration_ids}
+    else:
+        preds, labels = results
+        payload = {"output": preds, "labels": labels}
     with open(path, "wb") as f:
-        pickle.dump({"output": preds, "labels": labels}, f)
+        pickle.dump(payload, f)
     logger.info("Saved test scores to %s", path)
     return path
 
 
 def test(cfg, device=None):
     """Tests the model of ``cfg`` on ``TEST.DATASET``; returns (ensembled
-    scores (clips, classes) float64, labels (clips,)).
+    scores (clips, classes) float64, labels (clips,)), and for verb/noun
+    ((verb, noun) scores, (verb, noun) labels, narration ids (clips,)).
 
     Runs on the current CUDA device unless ``device="cpu"``; raises when
     CUDA is absent and no device was given. Raises ``NotImplementedError``
-    for a verb/noun config, ``TEST.SLIDE.ENABLE`` and ``NUM_SHARDS > 1``,
-    which come with later slices.
+    for the state head (a third ``NUM_CLASSES``), ``TEST.SLIDE.ENABLE`` and
+    ``NUM_SHARDS > 1``, which come with later slices.
     """
-    if is_multitask(cfg):
-        raise NotImplementedError("the verb/noun test meter comes with the EPIC slice")
+    if len(cfg.MODEL.NUM_CLASSES) > 2:
+        raise NotImplementedError(
+            f"NUM_CLASSES {list(cfg.MODEL.NUM_CLASSES)}: the state head is not ported yet")
     if cfg.TEST.SLIDE.ENABLE or cfg.TEST.DATASET.lower().endswith("slide"):
         raise NotImplementedError("sliding-window testing comes with the EPIC slice")
     if cfg.NUM_SHARDS > 1:
@@ -109,6 +131,7 @@ def test(cfg, device=None):
     setup_logging(cfg.OUTPUT_DIR)
     np.random.seed(cfg.RNG_SEED)
     logger.info("Test with config:\n%s", cfg.to_json())
+    multitask = is_multitask(cfg)
 
     model = build_model(cfg, device, torch.Generator().manual_seed(cfg.RNG_SEED))
     path = cu.load_test_checkpoint(cfg, model)
@@ -118,10 +141,10 @@ def test(cfg, device=None):
     try:
         dataset = test_loader.dataset
         num_clips = dataset._num_clips
-        meter = TestMeter(
+        meter = (EPICTestMeter if multitask else TestMeter)(
             num_audios=len(dataset) // num_clips,
             num_clips=num_clips,
-            num_cls=cfg.MODEL.NUM_CLASSES[0],
+            num_cls=cfg.MODEL.NUM_CLASSES if multitask else cfg.MODEL.NUM_CLASSES[0],
             overall_iters=len(test_loader),
             ensemble_method=cfg.DATA.ENSEMBLE_METHOD,
             log_period=cfg.LOG_PERIOD,
@@ -129,7 +152,7 @@ def test(cfg, device=None):
         results = perform_test(test_loader, model, eval_step, meter, device)
     finally:
         test_loader.close()
-    _save_scores(cfg, results)
-    if not cfg.DATA.MULTI_LABEL and cfg.TEST.DATASET.lower() == "vggsound":
+    _save_scores(cfg, results, multitask)
+    if not multitask and not cfg.DATA.MULTI_LABEL and cfg.TEST.DATASET.lower() == "vggsound":
         logger.info("VGG-Sound stats: %s", metrics.vggsound_stats(*results))
     return results

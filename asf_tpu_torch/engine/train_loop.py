@@ -4,10 +4,12 @@ Counterpart of ``asf_tpu/engine/train_loop.py:48-527``: seed, build the
 model and optimizer, resume or warm-start (``checkpoint/manager.py``), then
 for each epoch: reshuffle, ``train_epoch``, precise BN, a periodic
 checkpoint, and every ``EVAL_PERIOD`` epochs and at the last a val epoch,
-with ``checkpoint_best`` saved when its top-1 error is the lowest yet.
+with ``checkpoint_best`` saved when its top-1 error is the lowest yet (for
+verb/noun: its action top-1 accuracy the highest). An EPIC-KITCHENS run
+with ``EPICKITCHENS.TRAIN_PLUS_VAL`` trains on the ``train+val`` split.
 
-The loop never waits for the card within an epoch. Each step's loss and
-top-k errors stay on the card; once every ``LOG_PERIOD`` steps they are
+The loop never waits for the card within an epoch. Each step's losses and
+top-k statistics stay on the card; once every ``LOG_PERIOD`` steps they are
 stacked and queued as one copy into pinned host memory with an event, and
 the meter takes them (and the NaN check reads them) at a later flush once
 that event has completed, as the JAX loop's metrics thread does (:95-139).
@@ -39,7 +41,7 @@ from ..utils.logging import get_logger, setup_logging
 from ..utils.misc import log_model_info
 from ..utils.torch_setup import disable_tf32, resolve_device
 from .eval_loop import build_val_meter, eval_epoch
-from .meters import TrainMeter
+from .meters import EPICTrainMeter, TrainMeter
 from .steps import init_state, is_multitask, make_eval_step, make_train_step
 
 logger = get_logger(__name__)
@@ -50,11 +52,27 @@ def check_nan_losses(loss: float):
         raise RuntimeError(f"ERROR: Got NaN losses {loss}")
 
 
+# The step's numbers each meter takes, in the order they are copied off the card.
+_SINGLE = ("loss", "top1_err", "top5_err")
+_MULTI = ("loss", "verb_loss", "noun_loss", "verb_top1", "noun_top1", "action_top1",
+          "verb_top5", "noun_top5", "action_top5")
+
+
+def _update(train_meter, values: dict, lr: float, rows: int) -> None:
+    if isinstance(train_meter, EPICTrainMeter):
+        train_meter.update_stats(
+            tuple(values[f"{t}_top1"] for t in ("verb", "noun", "action")),
+            tuple(values[f"{t}_top5"] for t in ("verb", "noun", "action")), values, lr, rows)
+    else:
+        train_meter.update_stats(values["top1_err"], values["top5_err"], values["loss"], lr, rows)
+
+
 def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, device):
     data_size = len(train_loader)
     log_period = max(1, cfg.LOG_PERIOD)
     cuda = torch.device(device).type == "cuda"
-    pending = []  # (iteration, lr, rows, host times, (loss, top1_err, top5_err) on the card)
+    names = _MULTI if isinstance(train_meter, EPICTrainMeter) else _SINGLE
+    pending = []  # (iteration, lr, rows, host times, the step's ``names`` on the card)
     fetches = []  # ([(iteration, lr, rows, host times)], host tensor, event or None)
 
     def apply_ready(block: bool):
@@ -62,9 +80,10 @@ def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, de
             metas, host, event = fetches.pop(0)
             if event is not None:
                 event.synchronize()
-            for (it, lr, rows, times), (loss, top1, top5) in zip(metas, host.tolist()):
-                check_nan_losses(loss)
-                train_meter.update_stats(top1, top5, loss, lr, rows)
+            for (it, lr, rows, times), row in zip(metas, host.tolist()):
+                values = dict(zip(names, row))
+                check_nan_losses(values["loss"])
+                _update(train_meter, values, lr, rows)
                 train_meter.log_iter_stats(cur_epoch, it, times)
 
     def flush(block: bool = False):
@@ -85,7 +104,7 @@ def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, de
             train_meter.data_toc()
             lr = lr_policy.get_lr_at_epoch(cfg, cur_epoch + float(cur_iter) / data_size)
             parts, stats = train_step(state, batch, lr)
-            values = torch.stack([parts["loss"], stats["top1_err"], stats["top5_err"]])
+            values = torch.stack([{**parts, **stats}[k] for k in names])
             train_meter.iter_toc()
             pending.append((cur_iter, lr, batch["waveform"].shape[0], train_meter.iter_times(),
                             values))
@@ -128,8 +147,9 @@ def precise_bn(cfg, state, loader, pipeline, device, num_iters: int) -> None:
 
 
 def build_train_meter(cfg, epoch_iters: int):
+    """The verb/noun meter for a verb/noun head, else the single-task one."""
     if is_multitask(cfg):
-        raise NotImplementedError("the verb/noun train meter comes with the EPIC slice")
+        return EPICTrainMeter(epoch_iters, cfg)
     return TrainMeter(epoch_iters, cfg)
 
 
@@ -168,7 +188,9 @@ def train(cfg, device=None):
         log_model_info(model)
     start_epoch = cu.load_train_checkpoint(cfg, state)
 
-    train_loader = construct_loader(cfg, "train")
+    plus_val = (cfg.TRAIN.DATASET.lower().startswith("epickitchens")
+                and cfg.EPICKITCHENS.TRAIN_PLUS_VAL)
+    train_loader = construct_loader(cfg, "train+val" if plus_val else "train")
     val_loader = construct_loader(cfg, "val")
     train_step = make_train_step(cfg, device)
     eval_step = make_eval_step(cfg, device)

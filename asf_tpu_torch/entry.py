@@ -1,4 +1,5 @@
-"""Entry points of the port: the flagship eval forward and train step.
+"""Entry points of the port: the flagship eval forward and train step, and
+the configurations of the flagship and of EPIC-KITCHENS verb/noun.
 
 ``entry`` is the counterpart of ``__graft_entry__.py:17-65``: the VGG-Sound
 ``AudioSlowFast`` (SlowFast-R50, 309 classes, bf16 trunk) behind the log-mel
@@ -30,6 +31,50 @@ def flagship_cfg():
     cfg.RESNET.FREQUENCY_STRIDES = [[1, 1], [2, 2], [2, 2], [2, 2]]
     cfg.RESNET.FREQUENCY_DILATIONS = [[1, 1], [1, 1], [1, 1], [1, 1]]
     cfg.GPU.COMPUTE_DTYPE = "bfloat16"
+    return cfg
+
+
+def epic_cfg():
+    """The EPIC-KITCHENS-100 verb/noun configuration: the flagship trunk with
+    the values of ``models/asf/config/asf-original-augment.yaml`` for the
+    heads (97 verbs, 300 nouns), the clip (1.999 s, 400 frames), the data
+    (``EpicKitchens``, B = 32, 10 test views, 8 loader workers), BN (frozen,
+    precise statistics over up to 200 batches) and the solver (steps with
+    relative LRs from 0.001, 30 epochs), fine-tuned from a VGG-Sound
+    checkpoint (``TRAIN.CHECKPOINT_EPOCH_RESET``), with the bf16 front end.
+
+    The YAML's trunk differs from the flagship's in ``SLOWFAST.ALPHA`` (4),
+    ``SLOWFAST.FUSION_KERNEL_SZ`` (7) and ``RESNET.ZERO_INIT_FINAL_BN``;
+    these stay the flagship's, so that a checkpoint trained by
+    ``flagship_cfg()`` gives every trunk leaf. The data paths
+    (``EPICKITCHENS.*``, ``TRAIN.CHECKPOINT_FILE_PATH``) are the caller's.
+    """
+    cfg = flagship_cfg()
+    cfg.TRAIN.DATASET = cfg.TEST.DATASET = "EpicKitchens"
+    cfg.MODEL.NUM_CLASSES = [97, 300]
+    cfg.MODEL.ONLY_ACTION_RECOGNITION = True
+    cfg.MODEL.DROPOUT_RATE = 0.5
+    cfg.AUDIO_DATA.CLIP_SECS = 1.999
+    cfg.AUDIO_DATA.NUM_FRAMES = 400
+    cfg.TRAIN.BATCH_SIZE = cfg.TEST.BATCH_SIZE = 32
+    cfg.TRAIN.EVAL_PERIOD = cfg.TRAIN.CHECKPOINT_PERIOD = 1
+    cfg.TRAIN.CHECKPOINT_EPOCH_RESET = True
+    cfg.TEST.NUM_ENSEMBLE_VIEWS = 10
+    cfg.BN.FREEZE = True
+    cfg.BN.USE_PRECISE_STATS = True
+    cfg.BN.NUM_BATCHES_PRECISE = 200
+    cfg.SOLVER.BASE_LR = 0.001
+    cfg.SOLVER.LR_POLICY = "steps_with_relative_lrs"
+    cfg.SOLVER.STEPS = [0, 20, 25]
+    cfg.SOLVER.LRS = [1, 0.1, 0.01]
+    cfg.SOLVER.MAX_EPOCH = 30
+    cfg.SOLVER.MOMENTUM = 0.9
+    cfg.SOLVER.WEIGHT_DECAY = 1e-4
+    cfg.SOLVER.WARMUP_EPOCHS = -1.0
+    cfg.SOLVER.WARMUP_START_LR = 0.01
+    cfg.DATA_LOADER.NUM_WORKERS = 8
+    cfg.GPU.DSP_PRECISION = "BFLOAT16"
+    cfg.RNG_SEED = 0
     return cfg
 
 

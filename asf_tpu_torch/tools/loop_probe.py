@@ -83,12 +83,13 @@ def write_vggsound(root: str, cfg, n_train: int, n_val: int, secs: float,
 
 class StatsLog(logging.Handler):
     """Keeps the ``json_stats`` records logged under ``asf_tpu_torch`` while
-    it is attached, each with the host time it was logged at (``_at``), and
-    the times of ``train``'s "Start epoch" lines (``starts``)."""
+    it is attached, each with the host time it was logged at (``_at``), the
+    times of ``train``'s "Start epoch" lines (``starts``, the epochs in
+    ``start_epochs``) and the messages of the warnings (``warnings``)."""
 
     def __init__(self):
         super().__init__(logging.INFO)
-        self.records, self.starts = [], []
+        self.records, self.starts, self.start_epochs, self.warnings = [], [], [], []
 
     def emit(self, record):
         msg = record.getMessage()
@@ -96,6 +97,9 @@ class StatsLog(logging.Handler):
             self.records.append({**json.loads(msg[len("json_stats: "):]), "_at": record.created})
         elif msg.startswith("Start epoch: "):
             self.starts.append(record.created)
+            self.start_epochs.append(int(msg[len("Start epoch: "):]))
+        elif record.levelno >= logging.WARNING:
+            self.warnings.append(msg)
 
     def of(self, kind: str, since: int = 0) -> list:
         return [r for r in self.records[since:] if r["_type"] == kind]

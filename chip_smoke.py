@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Seven phases, each of which raises on a
+Run from the root of a checkout. Eight phases, each of which raises on a
 failed check (the script then exits non-zero and prints no result):
 
 1. Device and build: needs a CUDA device; prints the card's name and power
@@ -17,7 +17,10 @@ failed check (the script then exits non-zero and prints no result):
    the flagship geometry (24 kHz, n_fft 2048, win 240: a 256-tap support,
    256 frames, 128 mels) for ``logmel_f32`` and ``logmel_bf16``, and the
    wide-window geometry (win 2048, effective hop 120: a 2048-tap support)
-   for ``logmel_bf16_wide`` and for the other two at batch 8. Times: warm,
+   for ``logmel_bf16_wide`` and for the other two at batch 8, and the
+   EPIC-KITCHENS geometry (1.999 s clips, 47,975 samples: 400 frames, three
+   128-frame tiles and a 16-frame tail) for ``logmel_bf16`` at B = 32 and
+   at B = 16, its train and ragged val batches. Times: warm,
    CUDA events around a run of back-to-back launches over their count
    (median of 5 runs); cold, single launches each after a 512 MB write that
    evicts the 50 MB L2 (the write outside the timed window). The bound: the
@@ -84,7 +87,28 @@ failed check (the script then exits non-zero and prints no result):
    ``nvidia-smi`` nor ``/proc/<pid>/fd`` may show a worker holding the card
    (this process, the control, must). Prints ms per test iteration and
    clip views/s at B = 64, and the cores the workers share.
-7. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
+7. EPIC-KITCHENS verb/noun (``entry.epic_cfg``: the flagship trunk with
+   97 verb and 300 noun classes, 400 frames, B = 32, BN frozen, precise BN,
+   the bf16 front end, 10 test views) on a synthetic set written into the
+   temporary directory: 8 videos of 120 s of int16 noise at 24 kHz as
+   ``<video>.wav``, list-of-dicts annotations with ``narration_id``; 320
+   train rows (a third shorter than a clip, a quarter with a
+   ``transformation``, so the split reads float32), 80 val rows (int16,
+   the last batch 16), 32 test rows. ``train(cfg)`` runs one epoch
+   fine-tuned from phase 5's last checkpoint (``TRAIN.CHECKPOINT_FILE_PATH``,
+   ``CHECKPOINT_EPOCH_RESET``): exactly the two head projections are
+   skipped with a warning (so every trunk leaf loaded), the run starts at
+   epoch 1 and step 0, the frozen BN parameters end equal to the
+   checkpoint's, and ``logmel_bf16`` launches exactly once a batch (10
+   train, 10 precise BN, 3 val). ``test(cfg)`` from that run's checkpoint
+   scores the 32 rows in 10 views (10 launches), while no loader worker
+   holds the card; the score pickle must hold ``verb_output`` (32, 97),
+   ``noun_output`` (32, 300), the labels and the 32 narration ids in
+   order, each row the sum of 10 probability rows, and the meter's top-k
+   must follow from it; ``run_net`` must give the same scores within
+   ``CLI_TOL``. Prints ms per train, val and test iteration, the data
+   wait, clip views/s and the first batch's wait.
+8. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
    both above the card's float32 CUDA-core peak at their main-path shapes
    (``logmel_bf16`` flagship at B = 64 and 128, ``logmel_bf16_wide`` at
    B = 64); no ``HGMMA`` and no ``HMMA`` in the SASS of ``logmel_f32``'s
@@ -92,7 +116,7 @@ failed check (the script then exits non-zero and prints no result):
    slices, so that a run against an older tree of the kernels (a
    parent-versus-change comparison) still prints all its times before it
    fails.
-8. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+9. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -132,26 +156,28 @@ REPLACES = {
 # names): logmel_f32's main and reduce kernels, the bf16 symbols' one.
 DEVICE_FN = {"logmel_f32": "logmel_f32", "logmel_bf16": "logmel_tc_kernel",
              "logmel_bf16_wide": "logmel_tc_kernel"}
-# (kernel, wide window, batch): main-path shapes that must beat the float32
+# (kernel, geometry, batch): main-path shapes that must beat the float32
 # CUDA-core peak, which only the tensor cores can.
-TENSOR_CORE_ROWS = [("logmel_bf16", False, 64), ("logmel_bf16", False, 128),
-                    ("logmel_bf16_wide", True, 64)]
+TENSOR_CORE_ROWS = [("logmel_bf16", "flagship", 64), ("logmel_bf16", "flagship", 128),
+                    ("logmel_bf16_wide", "wide", 64)]
 FLUSH_BYTES = 512 * 2**20  # written before each cold launch: ten times the L2
-# (kernel, precision, wide window, batches): the main paths' shapes (eval:
-# f32 at 8, bf16 at 128; train: bf16 at 64, flagship and wide; train(cfg):
-# bf16 at 64 and at 32, its ragged last val batch), and the 2048-tap supports
-# of logmel_f32 and logmel_bf16 at 8.
+# (kernel, precision, geometry, batches): the main paths' shapes (eval: f32
+# at 8, bf16 at 128; train: bf16 at 64, flagship and wide; train(cfg): bf16
+# at 64 and at 32, its ragged last val batch; EPIC: bf16 at 32 and at 16,
+# its ragged last val batch), and the 2048-tap supports of logmel_f32 and
+# logmel_bf16 at 8.
 KERNEL_CASES = [
-    ("logmel_f32", "HIGHEST", False, (8, 128)),
-    ("logmel_bf16", "BFLOAT16", False, (8, 32, 64, 128)),
-    ("logmel_f32", "HIGHEST", True, (8,)),
-    ("logmel_bf16", "BFLOAT16", True, (8,)),
-    ("logmel_bf16_wide", "BFLOAT16", True, (8, 64)),
+    ("logmel_f32", "HIGHEST", "flagship", (8, 128)),
+    ("logmel_bf16", "BFLOAT16", "flagship", (8, 32, 64, 128)),
+    ("logmel_bf16", "BFLOAT16", "epic", (16, 32)),
+    ("logmel_f32", "HIGHEST", "wide", (8,)),
+    ("logmel_bf16", "BFLOAT16", "wide", (8,)),
+    ("logmel_bf16_wide", "BFLOAT16", "wide", (8, 64)),
 ]
-# The batch of each kernel's row in the kernels line: the eval slice's for
-# K1 and K2 (as before), the train slice's for K3.
-LINE_BATCH = {"logmel_f32": (False, 128), "logmel_bf16": (False, 128),
-              "logmel_bf16_wide": (True, 64)}
+# The geometry and batch of each kernel's row in the kernels line: the eval
+# slice's for K1 and K2 (as before), the train slice's for K3.
+LINE_BATCH = {"logmel_f32": ("flagship", 128), "logmel_bf16": ("flagship", 128),
+              "logmel_bf16_wide": ("wide", 64)}
 F32_TOL = 1e-4  # log domain, max abs: float32 FMA in another summation order
 # max and mean abs: the same bf16 roundings in another order. A magnitude
 # whose bf16 rounding flips moves its mel bin by at most log(1 + 2**-8) ~ 3.9e-3;
@@ -189,6 +215,11 @@ TEST_LAUNCHES = TEST_FILES * TEST_VIEWS // TEST_BATCH
 # Ensembled scores of one checkpoint, test(cfg) in this process against the
 # run_net CLI in another: the same kernels on the same inputs.
 CLI_TOL = 1e-4
+# Phase 7's synthetic EPIC-KITCHENS set: videos of EPIC_VIDEO_SECS; train rows
+# in 10 batches of 32, val 2 x 32 + 16, test rows in 10 views (10 batches).
+EPIC_VIDEOS, EPIC_VIDEO_SECS = 8, 120.0
+EPIC_TRAIN, EPIC_VAL, EPIC_TEST = 320, 80, 32
+EPIC_TRANSFORMS = ("polarity_inversion", "gaussian_noise", "pitch_shift")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -326,9 +357,16 @@ def phase_device() -> tuple[str, dict]:
     return card, sass
 
 
+def geometry_cfg(geometry: str):
+    """The config of a ``KERNEL_CASES`` geometry."""
+    from asf_tpu_torch.entry import epic_cfg, flagship_cfg, wide_window
+
+    return {"flagship": flagship_cfg, "wide": lambda: wide_window(flagship_cfg()),
+            "epic": epic_cfg}[geometry]()
+
+
 def phase_kernels(card: str) -> dict:
     from asf_tpu_torch.dsp.logmel import LogMelParams
-    from asf_tpu_torch.entry import flagship_cfg, wide_window
     from asf_tpu_torch.ops import logmel as ops
     from asf_tpu_torch.utils.torch_setup import disable_tf32
 
@@ -339,13 +377,12 @@ def phase_kernels(card: str) -> dict:
           f"| {card}", flush=True)
     flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
     results = {name: {"max_abs_err": 0.0, "rows": {}} for name in REPLACES}
-    for name, precision, wide, batches in KERNEL_CASES:
-        cfg = wide_window(flagship_cfg()) if wide else flagship_cfg()
+    for name, precision, geometry, batches in KERNEL_CASES:
+        cfg = geometry_cfg(geometry)
         cfg.GPU.DSP_PRECISION = precision
         p = LogMelParams(cfg, "cuda")
-        check(p.ksup == (2048 if wide else 256), f"support {p.ksup} taps")
+        check(p.ksup == (2048 if geometry == "wide" else 256), f"support {p.ksup} taps")
         kernel, plain = getattr(ops, name), getattr(ops, f"{name}_plain")
-        geometry = "wide" if wide else "flagship"
         for batch in batches:
             tag = f"{name} {geometry} B={batch}"
             wave = np.random.default_rng(batch).standard_normal((batch, p.clip_samples))
@@ -356,7 +393,8 @@ def phase_kernels(card: str) -> dict:
             got = kernel(*args, **geo)
             want = plain(*args, **geo)
             torch.cuda.synchronize()
-            check(got.shape == (batch, 256, 128), f"{tag} shape {tuple(got.shape)}")
+            check(got.shape == (batch, cfg.AUDIO_DATA.NUM_FRAMES, 128),
+                  f"{tag} shape {tuple(got.shape)}")
             check(bool(torch.isfinite(got).all()), f"{tag} gave non-finite values")
             err = (got - want).abs()
             max_err, mean_err = err.max().item(), err.mean().item()
@@ -413,7 +451,7 @@ def phase_kernels(card: str) -> dict:
                 row.update(f32_branches(tag, card, args, geo, got, ms))
                 max_err = max(max_err, row["other_branch"]["max_abs_err"])
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], max_err)
-            results[name]["rows"][(wide, batch)] = row
+            results[name]["rows"][(geometry, batch)] = row
     del flush
     return results
 
@@ -454,7 +492,7 @@ def f32_branches(tag: str, card: str, args: tuple, geo: dict, got: torch.Tensor,
 
 
 def check_instructions(card: str, sass: dict, kernels: dict) -> None:
-    """Phase 7: both bf16 kernels hold HGMMA and beat the float32 CUDA-core
+    """Phase 8: both bf16 kernels hold HGMMA and beat the float32 CUDA-core
     peak at their main-path shapes; logmel_f32's kernels hold no tensor-core
     instruction."""
     n_fns, hgmma, hmma = sass["logmel_f32"]
@@ -462,10 +500,10 @@ def check_instructions(card: str, sass: dict, kernels: dict) -> None:
           f"logmel_f32: {n_fns} kernel functions with {hgmma} HGMMA and {hmma} HMMA in their "
           "SASS; its function is IEEE float32 on the CUDA cores")
     f32_peak = peaks(card)[0] / 1e12
-    for name, wide, batch in TENSOR_CORE_ROWS:
+    for name, geometry, batch in TENSOR_CORE_ROWS:
         check(sass[name][1] > 0, f"{name}: no HGMMA in its kernel's SASS")
-        tflops = kernels[name]["rows"][(wide, batch)]["tflops"]
-        check(tflops > f32_peak, f"{name} {'wide' if wide else 'flagship'} B={batch}: "
+        tflops = kernels[name]["rows"][(geometry, batch)]["tflops"]
+        check(tflops > f32_peak, f"{name} {geometry} B={batch}: "
               f"{tflops:.2f} TFLOP/s, not above the float32 CUDA-core peak {f32_peak:.0f}")
 
 
@@ -940,7 +978,211 @@ def phase_test_cfg(card: str, cfg) -> dict:
     return launches
 
 
+def write_epic(root: str, cfg) -> list:
+    """Phase 7's synthetic EPIC-KITCHENS set in ``root``; points ``cfg``'s
+    ``EPICKITCHENS`` node at it and returns the test rows."""
+    from scipy.io import wavfile
+
+    sr = cfg.AUDIO_DATA.SAMPLING_RATE
+    clip_secs = cfg.AUDIO_DATA.CLIP_SECS
+    rng = np.random.default_rng(7)
+    audio = os.path.join(root, "epic_audio")
+    os.makedirs(audio)
+    for v in range(EPIC_VIDEOS):
+        wave = (rng.standard_normal(int(sr * EPIC_VIDEO_SECS)) * 3000).astype(np.int16)
+        wavfile.write(os.path.join(audio, f"P01_{v:02d}.wav"), sr, wave)
+
+    def stamp(sec: float) -> str:
+        return f"{int(sec // 3600):02d}:{int(sec % 3600 // 60):02d}:{sec % 60:05.2f}"
+
+    lists = {}
+    for split, n, transformed in (("train", EPIC_TRAIN, True), ("val", EPIC_VAL, False),
+                                  ("test", EPIC_TEST, False)):
+        rows = []
+        for i in range(n):
+            # a third of the actions shorter than a clip
+            secs = rng.uniform(0.5, clip_secs - 0.2) if i % 3 == 0 else rng.uniform(2.5, 6.0)
+            start = rng.uniform(0.0, EPIC_VIDEO_SECS - secs)
+            row = {"narration_id": f"{split}_{i:04d}", "participant_id": "P01",
+                   "video_id": f"P01_{i % EPIC_VIDEOS:02d}", "start_timestamp": stamp(start),
+                   "stop_timestamp": stamp(start + secs),
+                   "verb_class": int(rng.integers(cfg.MODEL.NUM_CLASSES[0])),
+                   "noun_class": int(rng.integers(cfg.MODEL.NUM_CLASSES[1]))}
+            if transformed and i % 4 == 1:  # a quarter: the split reads float32
+                row["transformation"] = EPIC_TRANSFORMS[i // 4 % len(EPIC_TRANSFORMS)]
+            rows.append(row)
+        with open(os.path.join(root, f"epic_{split}.pkl"), "wb") as f:
+            pickle.dump(rows, f)
+        lists[split] = rows
+    c = cfg.EPICKITCHENS
+    c.AUDIO_DATA_FILE, c.ANNOTATIONS_DIR = audio, root
+    c.PROCESSED_TRAIN_LIST = "epic_train.pkl"
+    c.PROCESSED_VAL_LIST = "epic_val.pkl"
+    c.PROCESSED_TEST_LIST = "epic_test.pkl"
+    return lists["test"]
+
+
+def _times(records: list) -> list:
+    """(s, data wait s) of each iteration's ``json_stats`` record."""
+    return [(round(r["dt"], 5), round(r["dt_data"], 5)) for r in records]
+
+
+def _topk(scores: np.ndarray, labels: np.ndarray, k: int) -> np.ndarray:
+    top = torch.topk(torch.from_numpy(scores), k, dim=1).indices
+    return (top == torch.from_numpy(labels)[:, None]).any(dim=1).numpy()
+
+
+def phase_epic(card: str, vgg_cfg, step_ms: float, root: str) -> tuple[dict, dict]:
+    """Phase 7: EPIC-KITCHENS verb/noun ``train(cfg)``, fine-tuned from phase
+    5's last checkpoint, then ``test(cfg)`` from its checkpoint, in this
+    process and through ``run_net``; returns the launch counts of the two
+    in-process runs."""
+    from asf_tpu_torch.checkpoint import manager as cu
+    from asf_tpu_torch.engine import test, train
+    from asf_tpu_torch.engine.optimizer import is_frozen_bn_param
+    from asf_tpu_torch.entry import epic_cfg
+    from asf_tpu_torch.tools.loop_probe import StatsLog
+
+    cfg = epic_cfg()
+    cfg.SOLVER.MAX_EPOCH = 1
+    cfg.LOG_PERIOD = 1
+    cfg.LOG_MODEL_INFO = False
+    cfg.DATA_LOADER.NUM_WORKERS = LOADER_WORKERS
+    cfg.OUTPUT_DIR = os.path.join(root, "epic_out")
+    vgg_ckpt = cu.get_last_checkpoint(vgg_cfg.OUTPUT_DIR)
+    cfg.TRAIN.CHECKPOINT_FILE_PATH = vgg_ckpt
+    t0 = time.perf_counter()
+    test_rows = write_epic(root, cfg)
+    print(f"[epic] wrote {EPIC_VIDEOS} wav files of {EPIC_VIDEO_SECS} s and {EPIC_TRAIN} + "
+          f"{EPIC_VAL} + {EPIC_TEST} rows in {time.perf_counter() - t0:.1f} s; fine-tune from "
+          f"{os.path.basename(vgg_ckpt)}", flush=True)
+    batch = cfg.TRAIN.BATCH_SIZE
+    n_train, n_val = EPIC_TRAIN // batch, -(-EPIC_VAL // batch)
+    n_test = -(-EPIC_TEST * cfg.TEST.NUM_ENSEMBLE_VIEWS // cfg.TEST.BATCH_SIZE)
+
+    with StatsLog() as stats:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        state = train(cfg)
+        torch.cuda.synchronize()
+        train_launches = read_launches()
+        wall = time.perf_counter() - t0
+    want = n_train + min(cfg.BN.NUM_BATCHES_PRECISE, n_train) + n_val
+    print(f"[epic] train(cfg): launches {train_launches} ({n_train} train, "
+          f"{min(cfg.BN.NUM_BATCHES_PRECISE, n_train)} precise BN, {n_val} val batches), "
+          f"{wall:.1f} s in train(cfg); warnings {stats.warnings}", flush=True)
+    check(train_launches == {n: (want if n == "logmel_bf16" else 0) for n in REPLACES},
+          f"epic train(cfg): launches {train_launches}, expected {want} of logmel_bf16")
+    skipped = [w for w in stats.warnings if w.startswith("pyth load: skipped")]
+    check(len(skipped) == 2 and any("head.projection_verb " in w for w in skipped)
+          and any("head.projection_noun " in w for w in skipped),
+          f"the fine-tune skipped {skipped}: it must skip the two head projections only")
+    check(stats.start_epochs == [1] and state.step == n_train,
+          f"started at epoch {stats.start_epochs}, ended at step {state.step}")
+    check(all(p.is_cuda for p in state.model.parameters()), "parameters off the card")
+    src = cu.load_checkpoint(vgg_ckpt)["model_state"]
+    got = state.model.state_dict()
+    frozen = [k for k in src if k.endswith((".weight", ".bias")) and is_frozen_bn_param(k)]
+    moved = [k for k in frozen if not torch.equal(got[k].cpu(), src[k])]
+    check(frozen and not moved, f"{len(moved)} of {len(frozen)} frozen BN parameters differ "
+          f"from the VGG-Sound checkpoint's, e.g. {moved[:3]}")
+    iters, viters = stats.of("train_iter"), stats.of("val_iter")
+    losses = [r[k] for r in iters for k in ("loss", "verb_loss", "noun_loss")]
+    check(len(iters) == n_train and all(math.isfinite(v) for v in losses),
+          f"{len(iters)} train_iter records, losses {losses}")
+    (val,) = stats.of("val_epoch")
+    check(all(0.0 <= val[f"{t}_top{k}_acc"] <= 100.0 for t in ("verb", "noun", "action")
+              for k in (1, 5)), f"val record {val}")
+    epoch_wall = stats.of("train_epoch")[0]["_at"] - stats.starts[-1]
+    steady = iters[1:]
+    it_ms = statistics.median(r["dt"] for r in steady) * 1e3
+    wait_ms = statistics.median(r["dt_data"] for r in steady) * 1e3
+    print(f"[epic] train(cfg) at B={batch} x {cfg.AUDIO_DATA.NUM_FRAMES} frames: {it_ms:.3f} ms "
+          f"per train iteration (median of iterations 2-{n_train}, host clock, no sync a "
+          f"step; {it_ms / step_ms:.3f} of train_entry's B=64 step in phase 4, {step_ms:.3f} "
+          f"ms), data wait {wait_ms:.3f} ms; first iteration {iters[0]['dt']:.4f} s (wait "
+          f"{iters[0]['dt_data']:.4f} s: the workers' start); epoch wall {epoch_wall:.4f} s; "
+          f"val iterations (s, wait s) {_times(viters)}; every train iteration (s, wait s) "
+          f"{_times(iters)} | {card}", flush=True)
+    print(f"[epic] train_epoch {stats.of('train_epoch')}; val_epoch {val}", flush=True)
+    del state
+
+    tcfg = cfg.clone()
+    tcfg.TEST.CHECKPOINT_FILE_PATH = cu.get_path_to_checkpoint(cfg.OUTPUT_DIR, 1)
+    tcfg.TEST.SAVE_RESULTS_PATH = "epic_scores.pkl"
+    check_loader_workers(card, tcfg)
+    with StatsLog() as stats:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        (verb, noun), (verb_l, noun_l), ids = test(tcfg)
+        torch.cuda.synchronize()
+        test_launches = read_launches()
+        wall = time.perf_counter() - t0
+    views = tcfg.TEST.NUM_ENSEMBLE_VIEWS
+    print(f"[epic] test(cfg): launches {test_launches}, {wall:.2f} s in test(cfg)", flush=True)
+    check(test_launches == {n: (n_test if n == "logmel_bf16" else 0) for n in REPLACES},
+          f"epic test(cfg): launches {test_launches}, expected {n_test} of logmel_bf16")
+    with open(os.path.join(tcfg.OUTPUT_DIR, "scores", tcfg.TEST.SAVE_RESULTS_PATH), "rb") as f:
+        saved = pickle.load(f)
+    check(set(saved) == {"verb_output", "noun_output", "labels", "narration_id"}
+          and set(saved["labels"]) == {"verb", "noun"}, f"score pickle keys {sorted(saved)}")
+    check(saved["verb_output"].shape == (EPIC_TEST, 97)
+          and saved["noun_output"].shape == (EPIC_TEST, 300),
+          f"scores {saved['verb_output'].shape}, {saved['noun_output'].shape}")
+    check(list(saved["narration_id"]) == [r["narration_id"] for r in test_rows] == list(ids),
+          f"narration ids {list(saved['narration_id'])[:4]}...")
+    for name, got, rows_key in (("verb", saved["labels"]["verb"], "verb_class"),
+                                ("noun", saved["labels"]["noun"], "noun_class")):
+        check(list(got) == [r[rows_key] for r in test_rows], f"{name} labels differ from the rows")
+    check(np.array_equal(saved["verb_output"], verb) and np.array_equal(saved["noun_output"], noun),
+          "the score pickle differs from test(cfg)'s result")
+    for name, scores in (("verb", verb), ("noun", noun)):
+        sums = scores.sum(axis=1)
+        check(bool(np.isfinite(scores).all()) and bool((np.abs(sums - views) <= 1e-3).all()),
+              f"{name} rows sum to {sums.min()}..{sums.max()}, not {views}")
+    check(not stats.of("test_warn"), f"clips with missing views: {stats.of('test_warn')}")
+    (final,) = stats.of("test_final")
+    recomputed = {}
+    for k in (1, 5):
+        v, n = _topk(verb, verb_l, k), _topk(noun, noun_l, k)
+        for t, hit in (("verb", v), ("noun", n), ("action", v & n)):
+            recomputed[f"{t}_top{k}_acc"] = f"{hit.mean() * 100:.2f}"
+    check(recomputed == {k: final[k] for k in recomputed},
+          f"top-k from the pickle {recomputed}, the meter's {final}")
+    titers = stats.of("test_iter")
+    check(len(titers) == n_test, f"{len(titers)} test_iter records")
+    test_ms = statistics.median(r["time_diff"] for r in titers[1:]) * 1e3
+    print(f"[epic] test(cfg) {EPIC_TEST} clips x {views} views at B={tcfg.TEST.BATCH_SIZE}: "
+          f"{test_ms:.3f} ms per test iteration (median of iterations 2-{n_test}, host clock), "
+          f"{tcfg.TEST.BATCH_SIZE / test_ms * 1e3:.1f} clip views/s; first iteration "
+          f"{titers[0]['time_diff']:.4f} s (wait {titers[0]['dt_data']:.4f} s); {final} | "
+          f"{card}", flush=True)
+
+    yaml_path = os.path.join(root, "epic.yaml")
+    with open(yaml_path, "w") as f:
+        f.write(tcfg.dump())
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "asf_tpu_torch.tools.run_net", "--cfg", yaml_path,
+         "TRAIN.ENABLE", "False", "TEST.ENABLE", "True", "TEST.SAVE_RESULTS_PATH",
+         "epic_cli.pkl"], cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"run_net exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(os.path.join(tcfg.OUTPUT_DIR, "scores", "epic_cli.pkl"), "rb") as f:
+        cli = pickle.load(f)
+    diff = max(float(np.abs(cli["verb_output"] - verb).max()),
+               float(np.abs(cli["noun_output"] - noun).max()))
+    print(f"[epic] python -m asf_tpu_torch.tools.run_net --cfg epic.yaml TRAIN.ENABLE False "
+          f"TEST.ENABLE True: exit 0 in {time.perf_counter() - t0:.1f} s, scores {diff:.3g} max "
+          f"abs from the in-process run (gated at {CLI_TOL})", flush=True)
+    check(diff <= CLI_TOL and list(cli["narration_id"]) == list(ids),
+          f"the CLI's scores differ by {diff} > {CLI_TOL}")
+    return train_launches, test_launches
+
+
 def main() -> None:
+    t0 = time.perf_counter()
     card, sass = phase_device()
     kernels = phase_kernels(card)
     eval_launches, _ = phase_slice(card)
@@ -948,13 +1190,16 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as root:
         loop_launches, loop_cfg = phase_train_cfg(card, train_timing["flagship"]["ms"], root)
         test_launches = phase_test_cfg(card, loop_cfg)
+        epic_train_launches, epic_test_launches = phase_epic(
+            card, loop_cfg, train_timing["flagship"]["ms"], root)
     check_instructions(card, sass, kernels)
     paths = {"eval": eval_launches, **{f"train {k}": v for k, v in train_launches.items()},
-             "train(cfg)": loop_launches, "test(cfg)": test_launches}
+             "train(cfg)": loop_launches, "test(cfg)": test_launches,
+             "epic train(cfg)": epic_train_launches, "epic test(cfg)": epic_test_launches}
     line = []
     for name, res in kernels.items():
-        wide, batch = LINE_BATCH[name]
-        row = res["rows"][(wide, batch)]
+        geometry, batch = LINE_BATCH[name]
+        row = res["rows"][(geometry, batch)]
         line.append({
             "name": name, "route": "cuda", "source": "asf_tpu_torch/csrc/logmel.cu",
             "replaces": REPLACES[name],
@@ -962,14 +1207,15 @@ def main() -> None:
             "max_abs_err": res["max_abs_err"], "ms": row["ms"], "cold_ms": row["cold_ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
-            "batch": batch, "support_taps": 2048 if wide else 256,
+            "batch": batch, "support_taps": 2048 if geometry == "wide" else 256,
             "launches_by_path": {k: counts[name] for k, counts in paths.items()},
             **({"other_branch": row["other_branch"]} if "other_branch" in row else {}),
             "other_shapes": {
-                f"{'wide' if w else 'flagship'} B={b}": {
+                f"{g} B={b}": {
                     k: r[k] for k in ("ms", "cold_ms", "plain_ms", "bound_ms", "max_abs_err")}
-                for (w, b), r in res["rows"].items() if (w, b) != (wide, batch)},
+                for (g, b), r in res["rows"].items() if (g, b) != (geometry, batch)},
         })
+    print(f"[smoke] {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

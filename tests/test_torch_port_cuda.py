@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card;
 the prefetcher's stream handling (fed by loader worker processes too) and
-the launches of ``train(cfg)`` and ``test(cfg)``.
+the launches of ``train(cfg)`` and ``test(cfg)``, for VGG-Sound and for
+EPIC-KITCHENS verb/noun.
 
 Imports no JAX, so it runs on a machine with a GPU and no JAX:
 
@@ -23,7 +24,7 @@ from asf_tpu_torch.data.prefetch import Prefetcher, prefetch
 from asf_tpu_torch.dsp.logmel import LogMelParams
 from asf_tpu_torch.engine import test as run_test
 from asf_tpu_torch.engine import train
-from asf_tpu_torch.entry import flagship_cfg, wide_window
+from asf_tpu_torch.entry import epic_cfg, flagship_cfg, wide_window
 from asf_tpu_torch.ops import logmel as ops
 from asf_tpu_torch.utils.torch_setup import disable_tf32
 
@@ -88,6 +89,18 @@ def test_kernel_matches_plain_version(name, precision, wide):
     p = _params(precision, wide)
     assert p.ksup == (2048 if wide else 256)
     _held_to_plain(name, p, _wave(p, 4), p.geometry(p.clip_samples))
+
+
+@pytest.mark.parametrize("batch", [16, 32])
+def test_bf16_kernel_at_the_epic_geometry(batch):
+    """EPIC-KITCHENS clips: 47,975 samples -> 400 frames, three 128-frame
+    tiles and a 16-frame tail; B = 32 trains, B = 16 is the ragged val batch."""
+    disable_tf32()
+    cfg = epic_cfg()
+    p = LogMelParams(cfg, "cuda")
+    geo = p.geometry(p.clip_samples)
+    assert p.clip_samples == 47975 and geo["n_frames"] == 400 and p.fast
+    _held_to_plain("logmel_bf16", p, _wave(p, batch), geo)
 
 
 # (batch, n_frames, hop, off) away from the main paths' shapes for the bf16
@@ -348,3 +361,77 @@ def test_prefetch_from_worker_processes_delivers_the_host_batches(tmp_path):
         for ld in lds.values():
             ld.close()
     assert lds[2].worker_pids() == []
+
+
+def _tiny_epic_cfg(tmp_path, splits):
+    """A tiny verb/noun SlowFast at the EPIC geometry (``epic_cfg``: 400
+    frames, bf16 front end), B = 4, on two seeded 10 s int16 wav files:
+    ``splits`` maps each split to its row count; a third of the rows are
+    shorter than a clip and, in train, a quarter carry a transformation."""
+    cfg = epic_cfg()
+    cfg.MODEL.NUM_CLASSES = [6, 8]
+    cfg.RESNET.DEPTH = 26
+    cfg.RESNET.WIDTH_PER_GROUP = 8
+    cfg.RESNET.NUM_BLOCK_TEMP_KERNEL = [[1, 1], [1, 1], [1, 1], [1, 1]]
+    cfg.TRAIN.BATCH_SIZE = cfg.TEST.BATCH_SIZE = 4
+    cfg.TEST.NUM_ENSEMBLE_VIEWS = 2
+    cfg.SOLVER.MAX_EPOCH = 1
+    cfg.BN.NUM_BATCHES_PRECISE = 2
+    cfg.DATA_LOADER.NUM_WORKERS = 0
+    cfg.LOG_MODEL_INFO = False
+    rng = np.random.default_rng(4)
+    for v in range(2):
+        wave = (rng.standard_normal(240000) * 3000).astype(np.int16)
+        wavfile.write(str(tmp_path / f"P01_{v:02d}.wav"), 24000, wave)
+    for split, n in splits.items():
+        rows = []
+        for i in range(n):
+            start, secs = 0.5 + 0.7 * i, (1.2 if i % 3 == 0 else 2.5)
+            row = {"narration_id": f"{split}_{i}", "participant_id": "P01",
+                   "video_id": f"P01_{i % 2:02d}", "start_timestamp": f"00:00:{start:05.2f}",
+                   "stop_timestamp": f"00:00:{start + secs:05.2f}",
+                   "verb_class": i % 6, "noun_class": i % 8}
+            if split == "train" and i % 4 == 1:
+                row["transformation"] = "gaussian_noise"
+            rows.append(row)
+        with open(tmp_path / f"{split}.pkl", "wb") as f:
+            pickle.dump(rows, f)
+    c = cfg.EPICKITCHENS
+    c.AUDIO_DATA_FILE = c.ANNOTATIONS_DIR = str(tmp_path)
+    c.PROCESSED_TRAIN_LIST, c.PROCESSED_VAL_LIST = "train.pkl", "val.pkl"
+    c.PROCESSED_TEST_LIST = "test.pkl"
+    cfg.OUTPUT_DIR = str(tmp_path / "out")
+    return cfg
+
+
+def test_epic_train_cfg_counts_its_launches(tmp_path):
+    """12 train rows (3 steps, float32: transformed rows), precise BN over 2
+    batches, 6 val rows (4 + 2, int16): 7 launches of ``logmel_bf16``."""
+    cfg = _tiny_epic_cfg(tmp_path, {"train": 12, "val": 6})
+    for w in WRAPPERS:
+        w.launches = 0
+    state = train(cfg)
+    torch.cuda.synchronize()
+    assert _launches() == {w.__name__: (7 if w.__name__ == "logmel_bf16" else 0)
+                           for w in WRAPPERS}
+    assert state.step == 3 and next(state.model.parameters()).is_cuda
+
+
+def test_epic_test_cfg_counts_its_launches(tmp_path):
+    """5 test rows in 2 views, B = 4 (4 + 4 + 2): 3 launches; the verb and
+    noun scores of every clip ensemble its 2 probability rows, and the
+    pickle carries the narration ids."""
+    cfg = _tiny_epic_cfg(tmp_path, {"test": 5})
+    for w in WRAPPERS:
+        w.launches = 0
+    (verb, noun), (verb_l, noun_l), ids = run_test(cfg)
+    torch.cuda.synchronize()
+    assert _launches() == {w.__name__: (3 if w.__name__ == "logmel_bf16" else 0)
+                           for w in WRAPPERS}
+    assert verb.shape == (5, 6) and noun.shape == (5, 8)
+    for scores in (verb, noun):
+        np.testing.assert_allclose(scores.sum(axis=1), 2.0, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(noun_l, np.arange(5) % 8)
+    with open(tmp_path / "out" / "scores" / "test_scores.pkl", "rb") as f:
+        saved = pickle.load(f)
+    assert list(saved["narration_id"]) == list(ids) == [f"test_{i}" for i in range(5)]
