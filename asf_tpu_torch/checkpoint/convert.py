@@ -5,7 +5,10 @@ the conversion is a per-leaf layout change:
 
 * conv kernels HWIO -> OIHW; dense kernels (I, O) -> (O, I);
 * BN ``scale``/``bias`` -> ``weight``/``bias``, ``mean``/``var`` ->
-  ``running_mean``/``running_var``, plus ``num_batches_tracked`` = 0.
+  ``running_mean``/``running_var``, plus ``num_batches_tracked`` = 0;
+* the GRU's leaves (``weight_ih_l{k}[_reverse]``, ``weight_hh_...``,
+  ``bias_ih_...``, ``bias_hh_...``) as they are: the JAX package stores them
+  in ``nn.GRU``'s layout (``asf_tpu/models/gru.py:15-17``).
 
 The result loads with ``model.load_state_dict(state, strict=True)``.
 """
@@ -14,8 +17,12 @@ from __future__ import annotations
 
 from collections.abc import Mapping
 
+import re
+
 import numpy as np
 import torch
+
+GRU_PARAM = re.compile(r"^(weight|bias)_(ih|hh)_l\d+(_reverse)?$")
 
 
 def _leaves(tree: Mapping, path=()):
@@ -38,6 +45,8 @@ def flax_variables_to_torch_state(variables: Mapping) -> dict[str, torch.Tensor]
             state[f"{prefix}.weight"] = arr
         elif leaf == "bias":
             state[f"{prefix}.bias"] = arr
+        elif GRU_PARAM.match(leaf):
+            state[f"{prefix}.{leaf}"] = arr
         else:
             raise ValueError(f"no torch counterpart for parameter {prefix}.{leaf}")
     out = {k: torch.tensor(v) for k, v in state.items()}  # copies, contiguous

@@ -13,14 +13,13 @@ shape filtering, ``utils/checkpoint.py:128-203``).
 
 from __future__ import annotations
 
-import re
 from typing import Any, Dict, Tuple
 
 import numpy as np
 from torch import nn
 
 from ..utils.logging import get_logger
-from .convert import flax_variables_to_torch_state
+from .convert import GRU_PARAM, flax_variables_to_torch_state
 
 logger = get_logger(__name__)
 
@@ -30,9 +29,6 @@ def _set(tree: Dict, path: Tuple[str, ...], value: np.ndarray) -> None:
     for k in path[:-1]:
         node = node.setdefault(k, {})
     node[path[-1]] = value
-
-
-_GRU_PARAM = re.compile(r"^(weight|bias)_(ih|hh)_l\d+(_reverse)?$")
 
 
 def torch_state_to_flax(state_dict: Dict[str, Any], clear_name_patterns=()) -> Dict[str, Dict]:
@@ -50,7 +46,7 @@ def torch_state_to_flax(state_dict: Dict[str, Any], clear_name_patterns=()) -> D
         leaf, prefix = tokens[-1], tuple(tokens[:-1])
         if leaf == "num_batches_tracked":
             continue
-        if _GRU_PARAM.match(leaf):
+        if GRU_PARAM.match(leaf):
             _set(params, prefix + (leaf,), arr.astype(np.float32))
         elif leaf == "running_mean":
             _set(batch_stats, prefix + ("mean",), arr.astype(np.float32))

@@ -1,7 +1,9 @@
-"""EPIC-KITCHENS-100 dataset: one clip an item, from per-video wav files.
+"""EPIC-KITCHENS-100 datasets from per-video wav files: one clip an item
+(``EpicKitchens``), or one chain of windows an item (``EpicKitchensGRU``).
 
 Counterpart of ``asf_tpu/data/epickitchens.py:50-376`` (``EpicKitchens``,
-regular items) and ``:588-642`` (``get_refs_batch``). Splits ``train``,
+regular items), ``:588-642`` (``get_refs_batch``) and ``:379-391,
+711-781`` (``_gru_region``, ``_get_item_gru``, ``EpicKitchensGRU``). Splits ``train``,
 ``val``, ``test`` (``TEST.NUM_ENSEMBLE_VIEWS`` records a row, each taking
 its own evenly spaced window) and ``train+val`` (both lists);
 ``EPICKITCHENS.SINGLE_BATCH`` keeps the first ``TRAIN.BATCH_SIZE`` rows of
@@ -26,6 +28,17 @@ each item bit for bit what ``__getitem__`` gives. Untransformed rows draw
 their starts in one vectorised call (``fast_rng``); a transformed row draws
 its start and then its transform from the item's own generator
 (``sampling.item_rng``), so it keeps the per-item draw.
+
+A chain item (``EpicKitchensGRU``) holds ``min(num_spectrograms,
+MAX_NB_SPECTROGRAMS)`` windows of one clip each, read from one covering
+region of the video: window ``i`` starts ``i * SAMPLING_RATE`` samples after
+the action's start (the reference advances one second a window, not clip
+minus overlap), and an action shorter than a clip gives its whole segment
+to every window. Each window's ``n_valid`` counts the samples inside the
+video, at least 1. Chain placement draws no random numbers, so
+``get_batch`` reads item by item; the JAX package's vectorised chain path
+(``_get_refs_batch_gru``) serves its device store, which is not ported. A
+test split of chains has one view a row.
 """
 
 from __future__ import annotations
@@ -36,7 +49,7 @@ import numpy as np
 
 from ..utils.logging import get_logger
 from .build import register_dataset
-from .records import EpicKitchensAudioRecord
+from .records import EpicKitchensAudioRecord, EpicKitchensAudioRecordGRU
 from .sampling import get_start_end_idx, get_start_end_idx_batch, item_rng
 from .transforms import get_transforms
 from .vggsound import load_wav, read_annotations
@@ -61,18 +74,23 @@ def audio_dir(path: str) -> str:
 
 @register_dataset("EpicKitchens")
 class EpicKitchens:
+    record_type = EpicKitchensAudioRecord
+
     def __init__(self, cfg, mode: str):
         if mode not in MODES:
-            raise ValueError(f"Split '{mode}' not supported for EpicKitchens")
+            raise ValueError(f"Split '{mode}' not supported for {type(self).__name__}")
         self.cfg = cfg
         self.mode = mode
-        self._num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS if mode == "test" else 1
+        # One view a row for chains (a GRU test set), as the JAX package decides it.
+        self._num_clips = (cfg.TEST.NUM_ENSEMBLE_VIEWS
+                           if mode == "test" and "GRU" not in cfg.TEST.DATASET else 1)
         self.clip_size = int(round(cfg.AUDIO_DATA.SAMPLING_RATE * cfg.AUDIO_DATA.CLIP_SECS))
         self.clip_samples = self.clip_size - 1
         self.int16 = bool(cfg.GPU.INT16_TRANSFER)
         self.transforms = get_transforms()
         self.audio_dir = audio_dir(cfg.EPICKITCHENS.AUDIO_DATA_FILE)
         self._epoch = 0
+        self._video_lens: dict = {}
         self._construct_loader()
         if self.int16:
             self._probe_int16()
@@ -101,7 +119,7 @@ class EpicKitchens:
             rows = read_annotations(f, index_key="narration_id")
             if self.cfg.EPICKITCHENS.SINGLE_BATCH:
                 rows = rows[: self.cfg.TRAIN.BATCH_SIZE]
-            records += [EpicKitchensAudioRecord(row, self.cfg) for row in rows]
+            records += [self.record_type(row, self.cfg) for row in rows]
         if not records:
             raise ValueError(f"Failed to load EPIC-KITCHENS split {self.mode} from {files}")
         self._video = [r.untrimmed_video_name for r in records]
@@ -111,7 +129,12 @@ class EpicKitchens:
         self._labels = {k: np.asarray([lab[k] for lab in labels]) for k in ("verb", "noun")}
         self._narration = [r.metadata["narration_id"] for r in records]
         self._transformation = [r.transformation for r in records]
-        logger.info("Constructed EpicKitchens %s (size %d) from %s", self.mode, len(self), files)
+        self._record_tables(records)
+        logger.info("Constructed %s %s (size %d) from %s", type(self).__name__, self.mode,
+                    len(self), files)
+
+    def _record_tables(self, records: list) -> None:
+        """Tables a subclass keeps beside the rows' (none here)."""
 
     def _probe_int16(self):
         """Turns the int16 transfer off for the split where a row has a
@@ -140,6 +163,13 @@ class EpicKitchens:
     # -- audio -------------------------------------------------------------
     def _path(self, video: str) -> str:
         return os.path.join(self.audio_dir, f"{video}.wav")
+
+    def _video_len(self, video: str) -> int:
+        """Samples in ``video`` (remembered: a chain reads it for every item)."""
+        n = self._video_lens.get(video)
+        if n is None:
+            n = self._video_lens[video] = len(load_wav(self._path(video), keep_int16=True)[0])
+        return n
 
     def _read_region(self, video: str, start: int, end: int) -> np.ndarray:
         """Samples ``[start, end)`` of ``video``, zeros outside the video:
@@ -203,11 +233,7 @@ class EpicKitchens:
         row = index // self._num_clips
         wave = np.zeros(self.clip_samples, np.int16 if self.int16 else np.float32)
         region = self._read_region(self._video[row], int(start), int(start) + int(n_valid))
-        clip, name = region, self._transformation[row]
-        if name != "none" and name in self.transforms:
-            clip = np.asarray(self.transforms[name](region, self.cfg.AUDIO_DATA.SAMPLING_RATE,
-                                                    rng=rng), np.float32)
-        wave[: len(region)] = clip[: self.clip_samples]
+        wave[: len(region)] = self._transform(row, region, rng)[: self.clip_samples]
         return {
             "waveform": wave,
             "n_valid": np.int32(n_valid),
@@ -215,6 +241,15 @@ class EpicKitchens:
             "index": index,
             "metadata": {"narration_id": self._narration[row]},
         }
+
+    def _transform(self, row: int, wave: np.ndarray, rng) -> np.ndarray:
+        """``wave`` through row ``row``'s transformation (float32), drawing
+        from ``rng``; as it is when the row has none."""
+        name = self._transformation[row]
+        if name != "none" and name in self.transforms:
+            return np.asarray(self.transforms[name](wave, self.cfg.AUDIO_DATA.SAMPLING_RATE,
+                                                    rng=rng), np.float32)
+        return wave
 
     def __getitem__(self, index: int):
         """Item ``index`` at the epoch of ``set_epoch``, placed and
@@ -239,3 +274,77 @@ class EpicKitchens:
 
     def __len__(self):
         return len(self._video) * self._num_clips
+
+
+@register_dataset("EpicKitchensGRU")
+class EpicKitchensGRU(EpicKitchens):
+    """One chain of windows an item: ``waveform`` (n_windows, clip_samples),
+    ``n_valid`` (n_windows,), ``length``, ``noun_embedding`` (512,), labels,
+    index and narration id."""
+
+    record_type = EpicKitchensAudioRecordGRU
+
+    def _record_tables(self, records: list) -> None:
+        max_nb = self.cfg.AUDIO_DATA.MAX_NB_SPECTROGRAMS
+        self._n_windows = np.asarray([min(r.num_spectrograms, max_nb) for r in records],
+                                     np.int64)
+        self._embedding = []
+        for r in records:
+            emb = r.noun_embedding
+            self._embedding.append(emb.astype(np.float32) if emb.size
+                                   else np.zeros(512, np.float32))
+
+    def _region(self, row: int) -> tuple[int, int]:
+        """(first, end) sample of row ``row``'s covering region: the
+        segment of an action shorter than a clip (empty for ``stop <=
+        start``), else from the start to the end of its last window."""
+        start, num = int(self._start[row]), int(self._num[row])
+        if num < self.clip_size:
+            return start, max(start, start + num)
+        sr = self.cfg.AUDIO_DATA.SAMPLING_RATE
+        return start, start + (int(self._n_windows[row]) - 1) * sr + self.clip_size
+
+    def _chain(self, index: int, rng=None) -> dict:
+        """The chain of ``index``; a transformed row draws from ``rng``, window by window."""
+        row = index
+        video, num = self._video[row], int(self._num[row])
+        n_windows = int(self._n_windows[row])
+        seg_start, region_end = self._region(row)
+        region = self._read_region(video, seg_start, region_end)
+        vid_len = self._video_len(video)
+        sr = self.cfg.AUDIO_DATA.SAMPLING_RATE
+        waves = np.zeros((n_windows, self.clip_samples), np.int16 if self.int16 else np.float32)
+        n_valid = np.zeros((n_windows,), np.int32)
+        for i in range(n_windows):
+            if num < self.clip_size:  # every window is the whole segment
+                chunk, start_i = region[: max(0, num)], seg_start
+            else:
+                off = i * sr
+                chunk, start_i = region[off : off + self.clip_samples], seg_start + off
+            chunk = self._transform(row, chunk, rng)[: self.clip_samples]
+            waves[i, : len(chunk)] = chunk
+            # Valid samples are those inside the video (the reference's slice
+            # stops at its end); at least 1, so that the front end's edge
+            # replication has a frame to copy.
+            in_video = max(0, min(start_i + len(chunk), vid_len) - start_i)
+            n_valid[i] = max(1, min(len(chunk), in_video))
+        return {
+            "waveform": waves,
+            "n_valid": n_valid,
+            "length": np.int32(n_windows),
+            "label": {k: v[row] for k, v in self._labels.items()},
+            "index": index,
+            "metadata": {"narration_id": self._narration[row]},
+            "noun_embedding": self._embedding[row],
+        }
+
+    def __getitem__(self, index: int):
+        return self._chain(index, item_rng(self.cfg.RNG_SEED, self._epoch, index))
+
+    def get_batch(self, epoch: int, indices) -> list:
+        """The chains ``indices`` of ``epoch``, each bit for bit what
+        ``__getitem__`` gives after ``set_epoch(epoch)``; only a transformed
+        row makes its generator."""
+        return [self._chain(i, item_rng(self.cfg.RNG_SEED, epoch, i)
+                            if self._transformation[i] != "none" else None)
+                for i in (int(i) for i in indices)]

@@ -1,9 +1,14 @@
 """Batch loader: whole batches read and collated in worker processes.
 
-Counterpart of ``asf_tpu/data/loader.py`` (``collate`` :39-126,
-``AsfLoader`` :129-299, ``construct_loader`` :302-330, ``shuffle_dataset``
-:333-335) for single-clip items of VGG-Sound and EPIC-KITCHENS (its
-``train+val`` split too); the GRU window chains come with the GRU slice.
+Counterpart of ``asf_tpu/data/loader.py`` (``bucket_windows`` :34,
+``collate`` :39-126, ``AsfLoader`` :129-299, ``construct_loader`` :302-330,
+``shuffle_dataset`` :333-335) for single-clip items of VGG-Sound and
+EPIC-KITCHENS (its ``train+val`` split too) and for EPIC window chains.
+A batch of chains is padded to ``bucket_windows(longest chain,
+MAX_NB_SPECTROGRAMS)`` windows, a power of two capped at the maximum, so
+that cuDNN meets few shapes; the JAX package's ``TPU.GRU_SINGLE_BUCKET``,
+which pads every batch to the maximum for XLA's compile keys, is not
+ported.
 ``AsfLoader`` visits the indices in the JAX package's order
 (``np.random.default_rng(seed + epoch)``, the wrap-pad and the rank split),
 so both packages see the same batches.
@@ -21,9 +26,14 @@ Workers start with ``spawn``: the parent holds a CUDA context and the
 prefetcher's thread, and a child forked from a process with threads can
 inherit a lock (the logging module's, CUDA's) that a thread of the parent
 held, and wait on it for ever. A spawned worker starts from a fresh
-interpreter, imports this package and numpy (never CUDA), and receives the
-dataset by pickle; a script that reads data therefore runs under ``if
-__name__ == "__main__":``. Workers live as long as the loader
+interpreter, imports this package and numpy (never CUDA), and rebuilds the
+dataset from its class, config and split; a script that reads data
+therefore runs under ``if __name__ == "__main__":``. The dataset itself does
+not travel: ``spawn`` writes a child's arguments into a pipe that the child
+reads only after importing its modules, so a pickle larger than the pipe
+(64 KB: the tables of a few hundred rows) makes the parent wait for each
+worker's imports in turn, and 8 workers start one after another instead of
+together. Workers live as long as the loader
 (``persistent_workers``) and ``close`` ends them. Each worker holds at most
 ``PREFETCH_FACTOR`` requests. Batches come back as pickled numpy arrays
 through the workers' pipes (no shared-memory segment); the prefetcher pins
@@ -49,28 +59,71 @@ from .build import build_dataset
 PREFETCH_FACTOR = 2  # requests a worker holds at a time
 
 
-def collate(items: List[Dict[str, Any]]) -> Dict[str, Any]:
-    """Stack single-clip items: waveform (B, S), n_valid (B,), labels as a
-    dict of stacked arrays (``class_id``, or ``verb`` and ``noun``), index
-    (B,) and metadata as lists (EPIC's ``narration_id``)."""
+def bucket_windows(n: int, max_n: int) -> int:
+    """``n`` rounded up to a power of two, capped at ``max_n``."""
+    b = 1
+    while b < n:
+        b *= 2
+    return min(b, max_n)
+
+
+def _collate_chains(items: List[Dict[str, Any]], max_windows: Optional[int]) -> Dict[str, Any]:
+    """waveform (B, Nb, S), n_valid (B, Nb), lengths (B,) and, where the
+    items carry it, noun_embedding (B, 512); Nb is the longest chain's
+    bucket. Padded windows are zeros with ``n_valid`` 1 (the front end's
+    edge replication needs a frame); the model masks them by ``lengths``."""
+    n_max = max(int(it["length"]) for it in items)
+    nb = bucket_windows(n_max, max_windows or n_max)
+    # int16 only when every chain is raw PCM; otherwise the int16 chains
+    # take the /32768 scale here, as single clips do.
+    all_int16 = all(it["waveform"].dtype == np.int16 for it in items)
+    waves = np.zeros((len(items), nb, items[0]["waveform"].shape[1]),
+                     np.int16 if all_int16 else np.float32)
+    n_valid = np.ones((len(items), nb), np.int32)
+    lengths = np.zeros((len(items),), np.int32)
+    for i, it in enumerate(items):
+        n = min(int(it["length"]), nb)
+        w = it["waveform"][:n]
+        if not all_int16 and w.dtype == np.int16:
+            w = w.astype(np.float32) / 32768.0
+        waves[i, :n] = w
+        n_valid[i, :n] = it["n_valid"][:n]
+        lengths[i] = n
+    out = {"waveform": waves, "n_valid": n_valid, "lengths": lengths}
+    if "noun_embedding" in items[0]:
+        out["noun_embedding"] = np.stack([it["noun_embedding"] for it in items])
+    return out
+
+
+def collate(items: List[Dict[str, Any]], max_windows: Optional[int] = None) -> Dict[str, Any]:
+    """Stack items. Single clips: waveform (B, S), n_valid (B,); window
+    chains: ``_collate_chains``, padded to at most ``max_windows``. Then
+    labels as a dict of stacked arrays (``class_id``, or ``verb`` and
+    ``noun``), index (B,) and metadata as lists (EPIC's ``narration_id``)."""
     first = items[0]
-    if first["waveform"].ndim != 1:
-        raise NotImplementedError("window-chain (GRU) items come with the GRU slice")
-    waves = [it["waveform"] for it in items]
-    if len({w.dtype for w in waves}) > 1:
-        # Raw int16 PCM beside float rows (a file that is not mono int16 fell
-        # back to float32 under GPU.INT16_TRANSFER): np.stack would promote
-        # the PCM to float at 32768x amplitude, so scale it here.
-        waves = [w.astype(np.float32) / 32768.0 if w.dtype == np.int16 else w.astype(np.float32)
-                 for w in waves]
+    if first["waveform"].ndim == 2:
+        out = _collate_chains(items, max_windows)
+    else:
+        waves = [it["waveform"] for it in items]
+        if len({w.dtype for w in waves}) > 1:
+            # Raw int16 PCM beside float rows (a file that is not mono int16
+            # fell back to float32 under GPU.INT16_TRANSFER): np.stack would
+            # promote the PCM to float at 32768x amplitude, so scale it here.
+            waves = [w.astype(np.float32) / 32768.0 if w.dtype == np.int16
+                     else w.astype(np.float32) for w in waves]
+        out = {"waveform": np.stack(waves),
+               "n_valid": np.asarray([it["n_valid"] for it in items], np.int32)}
     return {
-        "waveform": np.stack(waves),
-        "n_valid": np.asarray([it["n_valid"] for it in items], np.int32),
+        **out,
         "labels": {k: np.stack([np.asarray(it["label"][k]) for it in items])
                    for k in first["label"]},
         "index": np.asarray([it["index"] for it in items], np.int64),
         "metadata": {k: [it["metadata"][k] for it in items] for k in first["metadata"]},
     }
+
+
+def _rebuilt(cls, cfg, mode: str, max_windows: Optional[int]) -> "_Batches":
+    return _Batches(cls(cfg, mode), max_windows)
 
 
 def _as_is(batch):
@@ -79,14 +132,21 @@ def _as_is(batch):
 
 
 class _Batches(tud.Dataset):
-    """A dataset whose items are collated batches, keyed by ``(epoch, chunk)``."""
+    """A dataset whose items are collated batches, keyed by ``(epoch, chunk)``.
+    Pickled (into a worker), it carries the dataset's class, config and split
+    and rebuilds the dataset where it is unpickled."""
 
-    def __init__(self, dataset):
+    def __init__(self, dataset, max_windows: Optional[int]):
         self.dataset = dataset
+        self.max_windows = max_windows
+
+    def __reduce__(self):
+        ds = self.dataset
+        return _rebuilt, (type(ds), ds.cfg, ds.mode, self.max_windows)
 
     def __getitem__(self, key):
         epoch, chunk = key
-        return collate(self.dataset.get_batch(epoch, chunk))
+        return collate(self.dataset.get_batch(epoch, chunk), self.max_windows)
 
 
 class _Chunks(tud.Sampler):
@@ -111,8 +171,10 @@ class AsfLoader:
     worker processes start at the first pass and live until ``close``."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool, drop_last: bool,
-                 num_workers: int = 8, seed: int = 0, rank: int = 0, world_size: int = 1):
+                 num_workers: int = 8, seed: int = 0, rank: int = 0, world_size: int = 1,
+                 max_windows: Optional[int] = None):
         self.dataset = dataset
+        self.max_windows = max_windows
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -127,7 +189,7 @@ class AsfLoader:
         if self._dl is None:
             workers = self.num_workers > 0
             self._dl = tud.DataLoader(
-                _Batches(self.dataset), batch_size=None, sampler=_Chunks(self),
+                _Batches(self.dataset, self.max_windows), batch_size=None, sampler=_Chunks(self),
                 collate_fn=_as_is, num_workers=self.num_workers,
                 persistent_workers=workers,
                 prefetch_factor=PREFETCH_FACTOR if workers else None,
@@ -196,6 +258,7 @@ def construct_loader(cfg, split: str) -> AsfLoader:
         seed=cfg.RNG_SEED,
         rank=cfg.SHARD_ID,
         world_size=cfg.NUM_SHARDS,
+        max_windows=cfg.AUDIO_DATA.MAX_NB_SPECTROGRAMS,
     )
 
 

@@ -13,7 +13,11 @@ allocator does not reuse a buffer before the copy out of it has finished.
 
 This is the one place a batch is pinned: the loader's workers hand over
 plain numpy arrays. int16 waveforms stay int16 on the wire; labels and
-indices keep their integer types. With ``device="cpu"`` the same tensors
+indices keep their integer types. A batch of window chains carries its
+``lengths`` and ``noun_embedding`` to the card like any array, and keeps
+``host_lengths``, the lengths as a list of ints on the host: packing the
+GRU's sequences reads them there, and the step must not wait for the card
+to read them back. With ``device="cpu"`` the same tensors
 come without pinning or streams (the caller's choice, not a fallback). With ``depth=0`` there is
 no worker thread: each batch is loaded and copied the same way when the
 consumer asks for it (the tests use it to make the loader's delays the
@@ -86,6 +90,8 @@ class Prefetcher:
     # -- producer ----------------------------------------------------------
     def _upload(self, host: dict):
         """(device batch, event or None, pinned host tensors)."""
+        if "lengths" in host:
+            host = {**host, "host_lengths": host["lengths"].tolist()}
         if not self.cuda:
             return _tensors(host, _host), None, None
         pinned = _tensors(host, lambda a: _host(a).pin_memory())

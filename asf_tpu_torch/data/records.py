@@ -1,18 +1,21 @@
 """Audio records: views over annotation rows.
 
 Copy of ``asf_tpu/data/records.py:21-86`` (``timestamp_to_sec``,
-``AudioRecord``, ``EpicKitchensAudioRecord``). The JAX records take a
+``AudioRecord``, ``EpicKitchensAudioRecord``) and ``:88-121``
+(``EpicKitchensAudioRecordGRU``). The JAX records take a
 DataFrame's ``(index, row)`` pair and read the narration id from the index;
 these take one dict row that carries it under ``narration_id``
 (``vggsound.read_annotations(path, index_key="narration_id")`` gives such
-rows from a DataFrame and from a list of dicts alike). The GRU and PDDL
-records come with their slices.
+rows from a DataFrame and from a list of dicts alike). The PDDL records
+come with the state head's slice.
 """
 
 from __future__ import annotations
 
 import time
 from datetime import timedelta
+
+import numpy as np
 
 
 def timestamp_to_sec(timestamp: str) -> float:
@@ -76,3 +79,31 @@ class EpicKitchensAudioRecord(AudioRecord):
             "verb": self._series["verb_class"],
             "noun": self._series["noun_class"],
         }
+
+
+class EpicKitchensAudioRecordGRU(EpicKitchensAudioRecord):
+    """A record read as a chain of overlapping windows."""
+
+    def __init__(self, row: dict, cfg):
+        super().__init__(row, cfg)
+        self._spectrogram_overlap = cfg.AUDIO_DATA.SPECTROGRAM_OVERLAP
+
+    @property
+    def length_in_s(self) -> float:
+        return self.num_audio_samples / self._sampling_rate
+
+    @property
+    def num_spectrograms(self) -> int:
+        """ceil((len - overlap) / (clip - overlap)), at least 1."""
+        return int(np.ceil(max(
+            (self.length_in_s - self._spectrogram_overlap)
+            / (self.cfg.AUDIO_DATA.CLIP_SECS - self._spectrogram_overlap),
+            1,
+        )))
+
+    @property
+    def noun_embedding(self) -> np.ndarray:
+        """The row's ``noun_embedding``, flattened; empty when it has none."""
+        if "noun_embedding" in self._series:
+            return np.asarray(self._series["noun_embedding"]).reshape(-1)
+        return np.array([])

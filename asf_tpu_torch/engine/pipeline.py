@@ -5,7 +5,10 @@ by 1/32768, the log-mel front end runs with ``out_frames = NUM_FRAMES``, in
 training SpecAugment runs on the edge-padded float32 spectrogram
 (``GPU.SPEC_AUGMENT``), and the slow pathway gathers ``slow_indices`` frames.
 Outputs are NCHW ``(B, 1, T, F)``, PyTorch's layout; the JAX package's are
-NHWC ``(B, T, F, 1)``.
+NHWC ``(B, T, F, 1)``. A batch of window chains, waveform ``(B, N, S)`` and
+``n_valid`` ``(B, N)``, is flattened to ``B * N`` rows: one front-end launch
+for all of them, SpecAugment drawn row by row, and pathways of ``(B, N, 1,
+T, F)`` for the GRU model, which flattens them again for its trunk.
 
 The pipeline runs under ``torch.no_grad()``: no gradient flows into the
 waveform in the JAX package, and the log-mel kernels have no backward.
@@ -50,6 +53,10 @@ class InputPipeline:
     def __call__(self, waveform: torch.Tensor, n_valid: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  train: bool = False) -> list[torch.Tensor]:
+        chains = waveform.shape[:-1] if waveform.dim() == 3 else None
+        if chains is not None:
+            waveform = waveform.reshape(-1, waveform.shape[-1])
+            n_valid = n_valid.reshape(-1)
         if waveform.dtype == torch.int16:
             # 16-bit PCM shipped as raw samples; the same scale as the host
             # conversion of the upstream wav loader.
@@ -62,7 +69,10 @@ class InputPipeline:
             if generator is None:
                 raise ValueError("SpecAugment needs a generator in training")
             spec = spec_augment(spec, generator)
-        return pack_pathways(self.cfg, spec)
+        paths = pack_pathways(self.cfg, spec)
+        if chains is not None:
+            paths = [x.reshape(*chains, *x.shape[1:]) for x in paths]
+        return paths
 
 
 def make_input_pipeline(cfg, device) -> InputPipeline:

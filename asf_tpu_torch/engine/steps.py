@@ -1,8 +1,11 @@
 """The train step: waveforms -> loss -> gradients -> optimizer update, on the device.
 
-Counterparts of ``asf_tpu/engine/steps.py``: ``make_loss_fn`` (:146-184),
+Counterparts of ``asf_tpu/engine/steps.py``: ``is_gru_model`` (:43),
+``make_loss_fn`` (:146-184), ``_apply_model`` (:187-199),
 ``make_device_metrics`` (:202-236), ``_make_step_core``/``make_train_step``
 (:279-351), ``make_eval_step`` (:419-432) and ``init_state`` (:505-531).
+The GRU model takes its chains' ``lengths`` and ``host_lengths`` beside the
+pathways; its loss and metrics are the verb/noun ones, a row a chain.
 The single-task and verb/noun
 branches are ported; the state head's come with that head. The JAX
 package's scanned K-step dispatch (:354-416) exists for XLA dispatch costs
@@ -31,6 +34,24 @@ from ..models import losses as losses_mod
 from . import metrics as metrics_mod
 from .optimizer import construct_optimizer, set_lr
 from .pipeline import make_input_pipeline
+
+
+def is_gru_model(cfg) -> bool:
+    return cfg.MODEL.MODEL_NAME == "AudioSlowFastGRU"
+
+
+def apply_model(cfg):
+    """``forward(model, paths, batch) -> predictions``: the pathways alone,
+    or for the GRU model with the batch's ``lengths``, ``noun_embedding``
+    and ``host_lengths``."""
+    if not is_gru_model(cfg):
+        return lambda model, paths, batch: model(paths)
+
+    def forward(model, paths, batch):
+        return model(paths, batch["lengths"], batch.get("noun_embedding"),
+                     host_lengths=batch.get("host_lengths"))
+
+    return forward
 
 
 def is_multitask(cfg) -> bool:
@@ -116,10 +137,13 @@ def make_train_step(cfg, device):
     """``train_step(state, batch, lr) -> (parts, stats)``.
 
     ``batch`` holds ``waveform`` (B, S) float32 or int16, ``n_valid`` (B,)
-    and ``labels`` (``class_id``, or ``verb`` and ``noun``) on ``device``.
+    and ``labels`` (``class_id``, or ``verb`` and ``noun``) on ``device``;
+    for the GRU model waveform (B, N, S), n_valid (B, N), ``lengths`` (B,)
+    and ``host_lengths``.
     The model, optimizer and step count in ``state`` are updated in place.
     """
     pipeline = make_input_pipeline(cfg, device)
+    forward = apply_model(cfg)
     loss_fn = make_loss_fn(cfg)
     device_metrics = make_device_metrics(cfg)
 
@@ -127,7 +151,7 @@ def make_train_step(cfg, device):
         model, optimizer = state.model, state.optimizer
         model.train()
         paths = pipeline(batch["waveform"], batch["n_valid"], state.generator, train=True)
-        preds = model(paths)
+        preds = forward(model, paths, batch)
         loss, parts = loss_fn(preds, batch["labels"])
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -151,10 +175,11 @@ def make_eval_step(cfg, device):
     without augmentation, then the model in eval mode (softmax, then the
     mean over positions), under ``torch.inference_mode()``."""
     pipeline = make_input_pipeline(cfg, device)
+    forward = apply_model(cfg)
 
     @torch.inference_mode()
     def eval_step(model: nn.Module, batch: dict):
         model.eval()
-        return model(pipeline(batch["waveform"], batch["n_valid"], train=False))
+        return forward(model, pipeline(batch["waveform"], batch["n_valid"], train=False), batch)
 
     return eval_step

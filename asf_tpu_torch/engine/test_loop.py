@@ -124,8 +124,9 @@ def test(cfg, device=None):
             f"NUM_CLASSES {list(cfg.MODEL.NUM_CLASSES)}: the state head is not ported yet")
     if cfg.TEST.SLIDE.ENABLE or cfg.TEST.DATASET.lower().endswith("slide"):
         raise NotImplementedError("sliding-window testing comes with the EPIC slice")
-    if cfg.NUM_SHARDS > 1:
-        raise NotImplementedError(f"NUM_SHARDS = {cfg.NUM_SHARDS}: test(cfg) runs on one device")
+    if cfg.NUM_SHARDS > 1 or cfg.NUM_GPUS > 1:
+        raise NotImplementedError(f"NUM_SHARDS = {cfg.NUM_SHARDS}, NUM_GPUS = {cfg.NUM_GPUS}: "
+                                  "test(cfg) runs on one device")
     device = resolve_device(device)
     disable_tf32()
     setup_logging(cfg.OUTPUT_DIR)

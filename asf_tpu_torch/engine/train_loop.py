@@ -42,7 +42,7 @@ from ..utils.misc import log_model_info
 from ..utils.torch_setup import disable_tf32, resolve_device
 from .eval_loop import build_val_meter, eval_epoch
 from .meters import EPICTrainMeter, TrainMeter
-from .steps import init_state, is_multitask, make_eval_step, make_train_step
+from .steps import apply_model, init_state, is_multitask, make_eval_step, make_train_step
 
 logger = get_logger(__name__)
 
@@ -125,10 +125,12 @@ def precise_bn(cfg, state, loader, pipeline, device, num_iters: int) -> None:
     SpecAugment off): with ``momentum=None`` after ``reset_running_stats()``
     PyTorch keeps the cumulative mean, which is what the JAX package's
     momentum-1 average computes (:284-342). ``BN.FREEZE`` is lifted for the
-    pass; the momenta and the freeze are restored after it."""
+    pass; the momenta and the freeze are restored after it. A batch of
+    window chains counts its padded windows too, as the JAX package's
+    bucketed batches do."""
     if num_iters <= 0:
         return
-    model = state.model
+    model, forward = state.model, apply_model(cfg)
     bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
     saved = [(bn.momentum, getattr(bn, "stats_frozen", False)) for bn in bns]
     for bn in bns:
@@ -139,7 +141,7 @@ def precise_bn(cfg, state, loader, pipeline, device, num_iters: int) -> None:
     src = prefetch(loader, device)
     try:
         for batch in itertools.islice(src, num_iters):
-            model(pipeline(batch["waveform"], batch["n_valid"], train=False))
+            forward(model, pipeline(batch["waveform"], batch["n_valid"], train=False), batch)
     finally:
         src.close()
         for bn, (momentum, frozen) in zip(bns, saved):
@@ -169,15 +171,20 @@ def train(cfg, device=None):
     dropout) are seeded from ``(RNG_SEED, epoch)`` at each epoch, so that a
     resumed run repeats the epochs of an uninterrupted one.
     """
-    if cfg.NUM_SHARDS > 1:
+    if cfg.NUM_SHARDS > 1 or cfg.NUM_GPUS > 1:
         # The loader would split the data by SHARD_ID and the LR would scale
         # by NUM_SHARDS, but there is no process group and no gradient
         # all-reduce yet: each process would train alone on its share.
         raise NotImplementedError(
-            f"NUM_SHARDS = {cfg.NUM_SHARDS}: train(cfg) runs on one device")
+            f"NUM_SHARDS = {cfg.NUM_SHARDS}, NUM_GPUS = {cfg.NUM_GPUS}: train(cfg) runs on "
+            "one device")
     device = resolve_device(device)
     disable_tf32()
     setup_logging(cfg.OUTPUT_DIR)
+    for node in ("TENSORBOARD", "WANDB"):
+        if cfg[node].ENABLE:
+            logger.warning("%s.ENABLE: the observers are not ported; training goes on "
+                           "without them", node)
     np.random.seed(cfg.RNG_SEED)
     logger.info("Train with config:\n%s", cfg.to_json())
 

@@ -1,5 +1,6 @@
 """Entry points of the port: the flagship eval forward and train step, and
-the configurations of the flagship and of EPIC-KITCHENS verb/noun.
+the configurations of the flagship, of EPIC-KITCHENS verb/noun and of the
+EPIC-KITCHENS GRU sequence model.
 
 ``entry`` is the counterpart of ``__graft_entry__.py:17-65``: the VGG-Sound
 ``AudioSlowFast`` (SlowFast-R50, 309 classes, bf16 trunk) behind the log-mel
@@ -75,6 +76,38 @@ def epic_cfg():
     cfg.DATA_LOADER.NUM_WORKERS = 8
     cfg.GPU.DSP_PRECISION = "BFLOAT16"
     cfg.RNG_SEED = 0
+    return cfg
+
+
+def epic_gru_cfg():
+    """The GRU sequence model, ``models/asf/config/asf-gru.yaml``, on the
+    flagship trunk: ``AudioSlowFastGRU`` on ``EpicKitchensGRU`` chains of up
+    to ``MAX_NB_SPECTROGRAMS`` = 20 windows of 1.999 s (400 frames, 1 s of
+    overlap), B = 16 chains, a 2-layer bidirectional GRU with H = 512,
+    dropout 0.5, 97 verbs and 300 nouns, action only; BN frozen with precise
+    statistics over up to 64 batches; the YAML's solver (steps with relative
+    LRs from 0.01, 20 epochs) and seed; fine-tuned from an EPIC verb/noun
+    checkpoint (``TRAIN.CHECKPOINT_EPOCH_RESET``); the bf16 front end.
+
+    The trunk follows ``epic_cfg``'s rule (the YAML's ``SLOWFAST.ALPHA``,
+    ``FUSION_KERNEL_SZ`` and ``ZERO_INIT_FINAL_BN`` are not taken), so that a
+    checkpoint of ``epic_cfg()`` gives every trunk leaf and both
+    projections; the GRU and ``projection_to_dim_in`` start from their
+    initialisation. The data paths are the caller's.
+    """
+    cfg = epic_cfg()
+    cfg.MODEL.MODEL_NAME = "AudioSlowFastGRU"
+    cfg.TRAIN.DATASET = cfg.TEST.DATASET = "EpicKitchensGRU"
+    cfg.TRAIN.BATCH_SIZE = cfg.TEST.BATCH_SIZE = 16
+    cfg.AUDIO_DATA.MAX_NB_SPECTROGRAMS = 20
+    cfg.AUDIO_DATA.SPECTROGRAM_OVERLAP = 1.0
+    cfg.MODEL.GRU_HIDDEN_SIZE = 512
+    cfg.MODEL.GRU_NUM_LAYERS = 2
+    cfg.BN.NUM_BATCHES_PRECISE = 64
+    cfg.SOLVER.BASE_LR = 0.01
+    cfg.SOLVER.STEPS = [0, 15, 17]
+    cfg.SOLVER.MAX_EPOCH = 20
+    cfg.RNG_SEED = 25
     return cfg
 
 

@@ -1,16 +1,18 @@
 """Model builders and registry.
 
-Counterparts of ``asf_tpu/models/builders.py:29-239, 366-387``: the
+Counterparts of ``asf_tpu/models/builders.py:29-289, 366-387``: the
 two-pathway SlowFast trunk with its lateral fusions, ``AudioSlowFast``,
-``MODEL_REGISTRY`` and ``build_model`` (with the upstream "SlowFast"
-alias). Submodule names follow the JAX tree (``s1``, ``s1_fuse``, ...,
-``s5``, ``head``).
+``AudioSlowFastGRU`` (the same trunk over every window of a chain, then
+the GRU head), ``MODEL_REGISTRY`` and ``build_model`` (with the upstream
+"SlowFast" alias). Submodule names follow the JAX tree (``s1``,
+``s1_fuse``, ..., ``s5``, ``head``).
 
 Initialisation follows the JAX package from an explicit ``torch.Generator``:
 convs draw Caffe2 MSRA fill (normal, std sqrt(2 / fan_out), fan_out =
 out_channels * kernel area; ``asf_tpu/models/layers.py:28``), the
 projection normal(0, ``MODEL.FC_INIT_STD``) with a zero bias
-(``heads.py:26``), BN weight one (zero on the final BN of a block under
+(``heads.py:26``), every GRU weight and bias U(-1/sqrt(H), 1/sqrt(H))
+(``gru.py:32-40``), BN weight one (zero on the final BN of a block under
 ``RESNET.ZERO_INIT_FINAL_BN``) and bias zero.
 """
 
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.torch_setup import resolve_device
+from .gru import GRUResNetBasicHead
 from .heads import ResNetBasicHead
 from .layers import AudioModelStem, Conv2d, FuseFastToSlow, ResStage
 from .norm import make_norm
@@ -68,9 +71,8 @@ def _num_classes(cfg):
     return list(nc) if len(nc) > 1 else nc[0]
 
 
-@register_model("AudioSlowFast")
-class AudioSlowFast(nn.Module):
-    """Two-stream SlowFast audio classifier: [slow, fast] (B, 1, T', F) -> head."""
+class _SlowFastTrunk(nn.Module):
+    """The two-pathway trunk: [slow, fast] (B, 1, T', F) -> the s5 pathways."""
 
     def __init__(self, cfg, dtype=torch.float32):
         super().__init__()
@@ -128,8 +130,29 @@ class AudioSlowFast(nn.Module):
                     f"s{si + 2}_fuse", FuseFastToSlow(do // beta, ratio, fuse_k, alpha, norm, dtype)
                 )
         self.pool1 = [tuple(p) for p in _POOL1]
+
+    def trunk(self, xs):
+        xs = self.s1_fuse(self.s1(xs))
+        xs = self.s2_fuse(self.s2(xs))
+        xs = [F.max_pool2d(x, p, stride=p) for x, p in zip(xs, self.pool1)]
+        xs = self.s3_fuse(self.s3(xs))
+        xs = self.s4_fuse(self.s4(xs))
+        return self.s5(xs)
+
+
+def _head_dims(cfg) -> list:
+    w, beta = cfg.RESNET.WIDTH_PER_GROUP, cfg.SLOWFAST.BETA_INV
+    return [w * 32, w * 32 // beta]
+
+
+@register_model("AudioSlowFast")
+class AudioSlowFast(_SlowFastTrunk):
+    """Two-stream SlowFast audio classifier: [slow, fast] (B, 1, T', F) -> head."""
+
+    def __init__(self, cfg, dtype=torch.float32):
+        super().__init__(cfg, dtype)
         self.head = ResNetBasicHead(
-            dim_in=[w * 32, w * 32 // beta],
+            dim_in=_head_dims(cfg),
             num_classes=_num_classes(cfg),
             pool_size=head_pool_sizes(cfg, _POOL1),
             dropout_rate=cfg.MODEL.DROPOUT_RATE,
@@ -138,12 +161,34 @@ class AudioSlowFast(nn.Module):
         )
 
     def forward(self, xs):
-        xs = self.s1_fuse(self.s1(xs))
-        xs = self.s2_fuse(self.s2(xs))
-        xs = [F.max_pool2d(x, p, stride=p) for x, p in zip(xs, self.pool1)]
-        xs = self.s3_fuse(self.s3(xs))
-        xs = self.s4_fuse(self.s4(xs))
-        return self.head(self.s5(xs))
+        return self.head(self.trunk(xs))
+
+
+@register_model("AudioSlowFastGRU")
+class AudioSlowFastGRU(_SlowFastTrunk):
+    """The SlowFast trunk over every window of a chain, then the GRU head:
+    [slow, fast] (B, N, 1, T', F) and ``lengths`` (B,) -> (verb, noun)."""
+
+    def __init__(self, cfg, dtype=torch.float32):
+        super().__init__(cfg, dtype)
+        self.head = GRUResNetBasicHead(
+            dim_in=_head_dims(cfg),
+            num_classes=_num_classes(cfg),
+            pool_size=head_pool_sizes(cfg, _POOL1),
+            dropout_rate=cfg.MODEL.DROPOUT_RATE,
+            act_func=cfg.MODEL.HEAD_ACT,
+            gru_hidden_size=cfg.MODEL.GRU_HIDDEN_SIZE,
+            gru_num_layers=cfg.MODEL.GRU_NUM_LAYERS,
+            only_action_recognition=cfg.MODEL.ONLY_ACTION_RECOGNITION,
+            dtype=dtype,
+        )
+
+    def forward(self, xs, lengths, noun_embedding=None, host_lengths=None):
+        """``noun_embedding`` feeds only the state head's h0 (not ported), so
+        it is taken and not read; ``host_lengths`` as in ``gru.run_gru``."""
+        chains = tuple(xs[0].shape[:2])
+        feats = self.trunk([x.reshape(-1, *x.shape[2:]) for x in xs])
+        return self.head(feats, lengths, chains, host_lengths)
 
 
 @torch.no_grad()
@@ -156,6 +201,10 @@ def init_weights(model: nn.Module, fc_init_std: float, generator: torch.Generato
         elif isinstance(m, nn.Linear):
             m.weight.normal_(0.0, fc_init_std, generator=generator)
             m.bias.zero_()
+        elif isinstance(m, nn.GRU):
+            bound = 1.0 / math.sqrt(m.hidden_size)
+            for p in m.parameters():
+                p.uniform_(-bound, bound, generator=generator)
 
 
 def build_model(cfg, device=None, generator: torch.Generator | None = None) -> nn.Module:

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Eight phases, each of which raises on a
+Run from the root of a checkout. Nine phases, each of which raises on a
 failed check (the script then exits non-zero and prints no result):
 
 1. Device and build: needs a CUDA device; prints the card's name and power
@@ -20,7 +20,8 @@ failed check (the script then exits non-zero and prints no result):
    for ``logmel_bf16_wide`` and for the other two at batch 8, and the
    EPIC-KITCHENS geometry (1.999 s clips, 47,975 samples: 400 frames, three
    128-frame tiles and a 16-frame tail) for ``logmel_bf16`` at B = 32 and
-   at B = 16, its train and ragged val batches. Times: warm,
+   at B = 16, its train and ragged val batches, and at 320 rows, the GRU's
+   16 chains of 20 windows. Times: warm,
    CUDA events around a run of back-to-back launches over their count
    (median of 5 runs); cold, single launches each after a 512 MB write that
    evicts the 50 MB L2 (the write outside the timed window). The bound: the
@@ -108,7 +109,29 @@ failed check (the script then exits non-zero and prints no result):
    must follow from it; ``run_net`` must give the same scores within
    ``CLI_TOL``. Prints ms per train, val and test iteration, the data
    wait, clip views/s and the first batch's wait.
-8. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
+8. The GRU sequence model (``entry.epic_gru_cfg``: ``AudioSlowFastGRU``,
+   the flagship trunk with a 2-layer bidirectional GRU of H = 512, 97 verbs
+   and 300 nouns, B = 16 chains of up to 20 windows of 400 frames, BN
+   frozen, precise BN, the bf16 front end) on chains over phase 7's
+   videos: 192 train, 40 val and 24 test rows whose lengths put the train
+   batches, in the loader's order, into every bucket of 1, 2, 4, 8, 16 and
+   20 windows twice (two steps of 320 rows). ``train(cfg)`` runs one epoch
+   fine-tuned from phase 7's checkpoint: exactly ``head.gru`` and
+   ``head.projection_to_dim_in`` are skipped with a warning, frozen BN
+   parameters end equal to the checkpoint's, and ``logmel_bf16`` launches
+   once a batch (12 train, 12 precise BN, 3 val). Then, on the trained
+   state, one step of each bucket is timed (CUDA events, host wall and the
+   host's queueing time; chains/s and windows/s; the peak memory at 20
+   windows), the input pipeline at 320 rows is held to the plain front end
+   (padded windows read log(1e-6)), one 320-row step runs under
+   ``torch.profiler`` (busy ms, idle share, the GRU's kernels), and
+   torch's sync debug mode lists the calls that make the host wait for the
+   card: none may come from the GRU model's forward.
+   ``test(cfg)`` scores the 24 chains in one view each (2 launches): the
+   pickle's verb (24, 97) and noun (24, 300) rows each sum to 1, with the
+   narration ids and labels in order and the meter's top-k; ``run_net``
+   must give the same scores within ``CLI_TOL``.
+9. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
    both above the card's float32 CUDA-core peak at their main-path shapes
    (``logmel_bf16`` flagship at B = 64 and 128, ``logmel_bf16_wide`` at
    B = 64); no ``HGMMA`` and no ``HMMA`` in the SASS of ``logmel_f32``'s
@@ -116,7 +139,7 @@ failed check (the script then exits non-zero and prints no result):
    slices, so that a run against an older tree of the kernels (a
    parent-versus-change comparison) still prints all its times before it
    fails.
-9. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+10. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -132,6 +155,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -164,12 +189,12 @@ FLUSH_BYTES = 512 * 2**20  # written before each cold launch: ten times the L2
 # (kernel, precision, geometry, batches): the main paths' shapes (eval: f32
 # at 8, bf16 at 128; train: bf16 at 64, flagship and wide; train(cfg): bf16
 # at 64 and at 32, its ragged last val batch; EPIC: bf16 at 32 and at 16,
-# its ragged last val batch), and the 2048-tap supports of logmel_f32 and
-# logmel_bf16 at 8.
+# its ragged last val batch; the GRU: bf16 at 320 rows, 16 chains of 20
+# windows), and the 2048-tap supports of logmel_f32 and logmel_bf16 at 8.
 KERNEL_CASES = [
     ("logmel_f32", "HIGHEST", "flagship", (8, 128)),
     ("logmel_bf16", "BFLOAT16", "flagship", (8, 32, 64, 128)),
-    ("logmel_bf16", "BFLOAT16", "epic", (16, 32)),
+    ("logmel_bf16", "BFLOAT16", "epic", (16, 32, 320)),
     ("logmel_f32", "HIGHEST", "wide", (8,)),
     ("logmel_bf16", "BFLOAT16", "wide", (8,)),
     ("logmel_bf16_wide", "BFLOAT16", "wide", (8, 64)),
@@ -220,6 +245,14 @@ CLI_TOL = 1e-4
 EPIC_VIDEOS, EPIC_VIDEO_SECS = 8, 120.0
 EPIC_TRAIN, EPIC_VAL, EPIC_TEST = 320, 80, 32
 EPIC_TRANSFORMS = ("polarity_inversion", "gaussian_noise", "pitch_shift")
+# Phase 8's chains over phase 7's videos, 16 a batch: the longest chain of
+# each batch is set so that the batch pads to the bucket named here (train
+# in the loader's epoch order), so every bucket of MAX_NB_SPECTROGRAMS = 20
+# runs twice in train; val 16 + 16 + 8 chains, test 16 + 8.
+GRU_TRAIN_BUCKETS = (20, 1, 2, 4, 8, 16, 20, 16, 8, 4, 2, 1)
+GRU_VAL_BUCKETS = (20, 8, 4)
+GRU_TEST_BUCKETS = (16, 20)
+GRU_RAGGED = 8  # chains in the last val and test batches
 
 
 def check(ok: bool, msg: str) -> None:
@@ -492,7 +525,7 @@ def f32_branches(tag: str, card: str, args: tuple, geo: dict, got: torch.Tensor,
 
 
 def check_instructions(card: str, sass: dict, kernels: dict) -> None:
-    """Phase 8: both bf16 kernels hold HGMMA and beat the float32 CUDA-core
+    """Phase 9: both bf16 kernels hold HGMMA and beat the float32 CUDA-core
     peak at their main-path shapes; logmel_f32's kernels hold no tensor-core
     instruction."""
     n_fns, hgmma, hmma = sass["logmel_f32"]
@@ -1032,11 +1065,11 @@ def _topk(scores: np.ndarray, labels: np.ndarray, k: int) -> np.ndarray:
     return (top == torch.from_numpy(labels)[:, None]).any(dim=1).numpy()
 
 
-def phase_epic(card: str, vgg_cfg, step_ms: float, root: str) -> tuple[dict, dict]:
+def phase_epic(card: str, vgg_cfg, step_ms: float, root: str) -> tuple[dict, dict, str]:
     """Phase 7: EPIC-KITCHENS verb/noun ``train(cfg)``, fine-tuned from phase
     5's last checkpoint, then ``test(cfg)`` from its checkpoint, in this
     process and through ``run_net``; returns the launch counts of the two
-    in-process runs."""
+    in-process runs and that checkpoint."""
     from asf_tpu_torch.checkpoint import manager as cu
     from asf_tpu_torch.engine import test, train
     from asf_tpu_torch.engine.optimizer import is_frozen_bn_param
@@ -1178,6 +1211,380 @@ def phase_epic(card: str, vgg_cfg, step_ms: float, root: str) -> tuple[dict, dic
           f"abs from the in-process run (gated at {CLI_TOL})", flush=True)
     check(diff <= CLI_TOL and list(cli["narration_id"]) == list(ids),
           f"the CLI's scores differ by {diff} > {CLI_TOL}")
+    return train_launches, test_launches, tcfg.TEST.CHECKPOINT_FILE_PATH
+
+
+def write_gru(root: str, cfg) -> list:
+    """Phase 8's chain lists over phase 7's videos (``root/epic_audio``);
+    points ``cfg``'s ``EPICKITCHENS`` node at them and returns the test
+    rows. A chain of n windows lasts (n - 1/2) clip-minus-overlap spans past
+    the overlap (a 20-window chain 21-25 s), a one-window chain is shorter
+    than a clip, and every tenth row runs past its video's end."""
+    from asf_tpu_torch.data.loader import bucket_windows, construct_loader
+
+    a = cfg.AUDIO_DATA
+    step = a.CLIP_SECS - a.SPECTROGRAM_OVERLAP
+    batch = cfg.TRAIN.BATCH_SIZE
+    rng = np.random.default_rng(8)
+
+    def stamp(sec: float) -> str:
+        return f"{int(sec // 3600):02d}:{int(sec % 3600 // 60):02d}:{sec % 60:05.2f}"
+
+    lists = {}
+    for split, buckets in (("train", GRU_TRAIN_BUCKETS), ("val", GRU_VAL_BUCKETS),
+                           ("test", GRU_TEST_BUCKETS)):
+        n = len(buckets) * batch - (0 if split == "train" else batch - GRU_RAGGED)
+        order = np.arange(n)
+        if split == "train":  # the loader's order at epoch 0
+            np.random.default_rng(cfg.RNG_SEED).shuffle(order)
+        windows = np.empty(n, np.int64)
+        for b, top in enumerate(buckets):
+            rows = order[b * batch:(b + 1) * batch]
+            windows[rows] = rng.integers(1, top + 1, len(rows))
+            windows[rows[0]] = top
+        rows = []
+        for i, nw in enumerate(windows):
+            if nw == 1:
+                secs = rng.uniform(0.5, a.CLIP_SECS - 0.2)
+            elif nw == a.MAX_NB_SPECTROGRAMS:
+                secs = rng.uniform(21.0, 25.0)  # more windows than the model takes
+            else:
+                secs = a.SPECTROGRAM_OVERLAP + (nw - 0.5 + rng.uniform(-0.2, 0.2)) * step
+            start = (EPIC_VIDEO_SECS - secs / 2 if i % 10 == 9
+                     else rng.uniform(0.0, EPIC_VIDEO_SECS - 26.0))
+            rows.append({"narration_id": f"gru_{split}_{i:04d}", "participant_id": "P01",
+                         "video_id": f"P01_{i % EPIC_VIDEOS:02d}", "start_timestamp": stamp(start),
+                         "stop_timestamp": stamp(start + secs),
+                         "verb_class": int(rng.integers(cfg.MODEL.NUM_CLASSES[0])),
+                         "noun_class": int(rng.integers(cfg.MODEL.NUM_CLASSES[1]))})
+        with open(os.path.join(root, f"gru_{split}.pkl"), "wb") as f:
+            pickle.dump(rows, f)
+        lists[split] = rows
+    c = cfg.EPICKITCHENS
+    c.AUDIO_DATA_FILE, c.ANNOTATIONS_DIR = os.path.join(root, "epic_audio"), root
+    c.PROCESSED_TRAIN_LIST = "gru_train.pkl"
+    c.PROCESSED_VAL_LIST = "gru_val.pkl"
+    c.PROCESSED_TEST_LIST = "gru_test.pkl"
+    for split, buckets in (("train", GRU_TRAIN_BUCKETS), ("val", GRU_VAL_BUCKETS),
+                           ("test", GRU_TEST_BUCKETS)):
+        lcfg = cfg.clone()
+        lcfg.DATA_LOADER.NUM_WORKERS = 0
+        ld = construct_loader(lcfg, split)
+        nw, idx, bs = ld.dataset._n_windows, ld._indices(), ld.batch_size
+        got = tuple(bucket_windows(int(nw[idx[b * bs:(b + 1) * bs]].max()),
+                                   a.MAX_NB_SPECTROGRAMS) for b in range(len(ld)))
+        check(got == buckets, f"gru {split} batches pad to {got}, not {buckets}")
+    return lists["test"]
+
+
+def step_times(fn, reps: int = 2, runs: int = 3) -> dict:
+    """Medians over ``runs`` of ``reps`` back-to-back calls of ``fn()`` after
+    one warm-up call: ms a call on the card (CUDA events), on the host clock
+    up to the card's end (wall), and on the host clock until the calls were
+    queued (dispatch)."""
+    fn()
+    torch.cuda.synchronize()
+    dev, wall, dispatch = [], [], []
+    for _ in range(runs):
+        start, end = _events()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        t1 = time.perf_counter()
+        end.synchronize()
+        t2 = time.perf_counter()
+        dev.append(start.elapsed_time(end) / reps)
+        wall.append((t2 - t0) * 1e3 / reps)
+        dispatch.append((t1 - t0) * 1e3 / reps)
+    return {k: statistics.median(v) for k, v in
+            (("ms", dev), ("wall_ms", wall), ("dispatch_ms", dispatch))}
+
+
+def sync_calls(fn) -> list:
+    """``(message, place)`` of each call in ``fn()`` that makes the host wait
+    for the card, as torch's sync debug mode reports them; the place is the
+    innermost frame of the port (or of the repo) on the stack."""
+    found = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        text = str(message).splitlines()[0]
+        if text.startswith("Synchronization debug mode is a prototype"):
+            return
+        frames = [f for f in traceback.extract_stack() if f.filename.startswith(str(ROOT))
+                  and "chip_smoke" not in f.filename]
+        where = (f"{os.path.relpath(frames[-1].filename, ROOT)}:{frames[-1].lineno}" if frames
+                 else f"{filename}:{lineno}")
+        found.append((text[:60], where))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return found
+
+
+def gru_profile(card: str, step, state, batch, lr: float, wall_ms: float) -> None:
+    """One train step of ``batch`` under ``torch.profiler`` (device activity):
+    busy ms, idle share against ``wall_ms``, the GRU kernels' ms (names with
+    ``rnn`` or ``gru``) and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from asf_tpu_torch.tools.profile_forward import busy_us
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, batch, lr)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print(f"[gru] the profiler recorded no device activity: the GRU kernels' time is not "
+              f"measured | {card}", flush=True)
+        return
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3
+    gru = {k: v for k, v in by_name.items() if any(t in k.lower() for t in ("rnn", "gru"))}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    print(f"[gru] one train step of the largest bucket under torch.profiler: device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.3f} of the step's wall "
+          f"{wall_ms:.3f} ms without the profiler, {len(kernels)} kernels; the GRU's kernels "
+          f"{sum(gru.values()):.3f} ms: "
+          f"{[(k[:240], round(v, 4)) for k, v in sorted(gru.items(), key=lambda kv: -kv[1])]}; "
+          f"top kernels {[(k[:70], round(v, 3)) for k, v in top[:10]]} | {card}", flush=True)
+
+
+def check_padded_windows(card: str, cfg, batch: dict) -> None:
+    """The input pipeline on ``batch`` (bf16 front end, K2) against the plain
+    front end on the same chains: within ``BF16_TOL``, and the padded
+    windows (zeros, ``n_valid`` 1) are log(eps) frames in both."""
+    from asf_tpu_torch.dsp.logmel import edge_pad
+    from asf_tpu_torch.engine.pipeline import make_input_pipeline, pack_pathways
+    from asf_tpu_torch.ops import logmel as ops
+
+    wave, n_valid, lengths = batch["waveform"], batch["n_valid"], batch["lengths"]
+    pipe = make_input_pipeline(cfg, wave.device)
+    p = pipe.params
+    b, n, s = wave.shape
+    with torch.inference_mode():
+        got = pipe(wave, n_valid)
+        x = wave.reshape(b * n, s)
+        x = x.float() / 32768.0 if x.dtype == torch.int16 else x
+        log_mel = ops.logmel_bf16_plain(x.to(p.dtype).contiguous(), p.w_cos, p.w_sin, p.mel_w,
+                                        **p.geometry(s))
+        want = pack_pathways(cfg, edge_pad(log_mel, n_valid.reshape(-1), p.hop,
+                                           cfg.AUDIO_DATA.NUM_FRAMES))
+    pad = torch.arange(n, device=wave.device)[None, :] >= lengths[:, None]
+    err = max((g.reshape(b * n, -1) - w.reshape(b * n, -1)).abs().max().item()
+              for g, w in zip(got, want))
+    eps = math.log(1e-6)
+    pad_err = max((g[pad] - eps).abs().max().item() for g in got)
+    print(f"[gru] the pipeline at B={b} x N={n} ({b * n} rows, {int(pad.sum())} padded "
+          f"windows): max abs {err:.3g} from the plain front end; padded windows "
+          f"{pad_err:.3g} from log(1e-6) | {card}", flush=True)
+    check(err <= BF16_TOL[0], f"the GRU pipeline is {err} from the plain front end")
+    check(bool(pad.any()) and pad_err <= 1e-4, f"padded windows {pad_err} from log(1e-6)")
+
+
+def phase_gru(card: str, epic_ckpt: str, root: str) -> tuple[dict, dict]:
+    """Phase 8: the GRU sequence model's ``train(cfg)``, fine-tuned from
+    phase 7's EPIC checkpoint, per-bucket steps timed on the trained state,
+    then ``test(cfg)`` in this process and through ``run_net``; returns the
+    launch counts of the two in-process runs."""
+    from asf_tpu_torch.checkpoint import manager as cu
+    from asf_tpu_torch.data.loader import collate, construct_loader
+    from asf_tpu_torch.data.prefetch import Prefetcher
+    from asf_tpu_torch.engine import test, train
+    from asf_tpu_torch.engine.optimizer import is_frozen_bn_param
+    from asf_tpu_torch.engine.steps import make_train_step
+    from asf_tpu_torch.entry import epic_gru_cfg
+    from asf_tpu_torch.tools.loop_probe import StatsLog
+
+    cfg = epic_gru_cfg()
+    cfg.SOLVER.MAX_EPOCH = 1
+    cfg.LOG_PERIOD = 1
+    cfg.LOG_MODEL_INFO = False
+    cfg.DATA_LOADER.NUM_WORKERS = LOADER_WORKERS
+    cfg.OUTPUT_DIR = os.path.join(root, "gru_out")
+    cfg.TRAIN.CHECKPOINT_FILE_PATH = epic_ckpt
+    t0 = time.perf_counter()
+    test_rows = write_gru(root, cfg)
+    batch, max_nb = cfg.TRAIN.BATCH_SIZE, cfg.AUDIO_DATA.MAX_NB_SPECTROGRAMS
+    n_train, n_val, n_test = len(GRU_TRAIN_BUCKETS), len(GRU_VAL_BUCKETS), len(GRU_TEST_BUCKETS)
+    n_precise = min(cfg.BN.NUM_BATCHES_PRECISE, n_train)
+    print(f"[gru] wrote {n_train * batch} + {len(test_rows) + (n_val - n_test) * batch} + "
+          f"{len(test_rows)} chain rows in {time.perf_counter() - t0:.1f} s; train batches pad "
+          f"to {GRU_TRAIN_BUCKETS} windows, val {GRU_VAL_BUCKETS}, test {GRU_TEST_BUCKETS}; "
+          f"fine-tune from {os.path.basename(epic_ckpt)}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    with StatsLog() as stats:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        state = train(cfg)
+        torch.cuda.synchronize()
+        train_launches = read_launches()
+        wall = time.perf_counter() - t0
+    peak_train = torch.cuda.max_memory_allocated() / 2**30
+    want = n_train + n_precise + n_val
+    print(f"[gru] train(cfg): launches {train_launches} ({n_train} train, {n_precise} precise "
+          f"BN, {n_val} val batches), {wall:.1f} s in train(cfg), peak device memory "
+          f"{peak_train:.2f} GiB; warnings {stats.warnings}", flush=True)
+    check(train_launches == {k: (want if k == "logmel_bf16" else 0) for k in REPLACES},
+          f"gru train(cfg): launches {train_launches}, expected {want} of logmel_bf16")
+    skipped = sorted(w.split()[3] for w in stats.warnings if w.startswith("pyth load: skipped"))
+    check(skipped == ["head.gru", "head.projection_to_dim_in"],
+          f"the fine-tune skipped {skipped}: it must skip the GRU and projection_to_dim_in only")
+    check(stats.start_epochs == [1] and state.step == n_train,
+          f"started at epoch {stats.start_epochs}, ended at step {state.step}")
+    check(all(p.is_cuda for p in state.model.parameters()), "parameters off the card")
+    src = cu.load_checkpoint(epic_ckpt)["model_state"]
+    got = state.model.state_dict()
+    frozen = [k for k in src if k.endswith((".weight", ".bias")) and is_frozen_bn_param(k)]
+    moved = [k for k in frozen if not torch.equal(got[k].cpu(), src[k])]
+    check(frozen and not moved, f"{len(moved)} of {len(frozen)} frozen BN parameters differ "
+          f"from the EPIC checkpoint's, e.g. {moved[:3]}")
+    iters, viters = stats.of("train_iter"), stats.of("val_iter")
+    losses = [r[k] for r in iters for k in ("loss", "verb_loss", "noun_loss")]
+    check(len(iters) == n_train and all(math.isfinite(v) for v in losses),
+          f"{len(iters)} train_iter records, losses {losses}")
+    (val,) = stats.of("val_epoch")
+    check(all(0.0 <= val[f"{t}_top{k}_acc"] <= 100.0 for t in ("verb", "noun", "action")
+              for k in (1, 5)), f"val record {val}")
+    per_bucket = {}
+    for r, nb in zip(iters, GRU_TRAIN_BUCKETS):
+        per_bucket.setdefault(nb, []).append(r["dt"] * 1e3)
+    waits = [r["dt_data"] * 1e3 for r in iters[1:]]
+    epoch_wall = stats.of("train_epoch")[0]["_at"] - stats.starts[-1]
+    print(f"[gru] train(cfg) ms per iteration by bucket (windows: first, second; host clock at "
+          f"each iter_toc, no sync a step): "
+          f"{ {nb: [round(t, 3) for t in v] for nb, v in sorted(per_bucket.items())} }; data "
+          f"wait median {statistics.median(waits):.3f} ms (iterations 2-{n_train}); first "
+          f"iteration {iters[0]['dt']:.4f} s (wait {iters[0]['dt_data']:.4f} s: the workers' "
+          f"start); epoch wall {epoch_wall:.4f} s; val iterations (s, wait s) {_times(viters)} "
+          f"| {card}", flush=True)
+    print(f"[gru] train_epoch {stats.of('train_epoch')}; val_epoch {val}", flush=True)
+
+    # The step of each bucket on the trained state, synchronised: the first
+    # batch of that bucket in the epoch's order, read on the host.
+    ld = construct_loader(cfg, "train")
+    idx = ld._indices()
+    firsts = {}
+    for b, nb in enumerate(GRU_TRAIN_BUCKETS):
+        firsts.setdefault(nb, idx[b * batch:(b + 1) * batch])
+    device = next(state.model.parameters()).device
+    step = make_train_step(cfg, device)
+    lr = 0.01
+    timing = {}
+    for nb in sorted(firsts):
+        host = collate(ld.dataset.get_batch(0, firsts[nb]), max_nb)
+        (dev,) = list(Prefetcher([host], device, depth=0))
+        if nb == max_nb:
+            big = dev
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t = step_times(lambda: step(state, dev, lr))
+        if nb == max_nb:
+            t["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rows = batch * nb
+        t.update(chains_per_s=batch / t["ms"] * 1e3, windows_per_s=rows / t["ms"] * 1e3)
+        timing[nb] = t
+        print(f"[gru] step at {batch} chains x {nb} windows ({rows} rows): {t['ms']:.3f} ms on "
+              f"the card (CUDA events, median of 3 runs of 2 after one), wall {t['wall_ms']:.3f} "
+              f"ms, queued in {t['dispatch_ms']:.3f} ms on the host; {t['chains_per_s']:.1f} "
+              f"chains/s, {t['windows_per_s']:.1f} windows/s"
+              + (f"; peak device memory {t['peak_gib']:.2f} GiB" if "peak_gib" in t else "")
+              + f" | {card}", flush=True)
+    check_padded_windows(card, cfg, big)
+    gru_profile(card, step, state, big, lr, timing[max_nb]["wall_ms"])
+    # The calls that make the host wait for the card: none in the GRU
+    # model's forward, whose packing reads host lengths; those of a step.
+    with torch.inference_mode():
+        paths = step.pipeline(big["waveform"], big["n_valid"])
+        state.model.eval()
+        forward = sync_calls(lambda: state.model(paths, big["lengths"],
+                                                 host_lengths=big["host_lengths"]))
+    in_step = sync_calls(lambda: step(state, big, lr))
+    print(f"[gru] synchronizing calls (torch.cuda.set_sync_debug_mode 'warn'; the port's "
+          f"innermost frame): the model's forward {forward}, a train step {in_step}", flush=True)
+    check(not forward, f"the GRU model's forward waits for the card at {forward}")
+    del state, big, dev
+
+    tcfg = cfg.clone()
+    tcfg.TEST.CHECKPOINT_FILE_PATH = cu.get_path_to_checkpoint(cfg.OUTPUT_DIR, 1)
+    tcfg.TEST.SAVE_RESULTS_PATH = "gru_scores.pkl"
+    with StatsLog() as stats:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        (verb, noun), (verb_l, noun_l), ids = test(tcfg)
+        torch.cuda.synchronize()
+        test_launches = read_launches()
+        wall = time.perf_counter() - t0
+    print(f"[gru] test(cfg): launches {test_launches}, {wall:.2f} s in test(cfg)", flush=True)
+    check(test_launches == {k: (n_test if k == "logmel_bf16" else 0) for k in REPLACES},
+          f"gru test(cfg): launches {test_launches}, expected {n_test} of logmel_bf16")
+    with open(os.path.join(tcfg.OUTPUT_DIR, "scores", tcfg.TEST.SAVE_RESULTS_PATH), "rb") as f:
+        saved = pickle.load(f)
+    check(set(saved) == {"verb_output", "noun_output", "labels", "narration_id"},
+          f"score pickle keys {sorted(saved)}")
+    check(saved["verb_output"].shape == (len(test_rows), 97)
+          and saved["noun_output"].shape == (len(test_rows), 300),
+          f"scores {saved['verb_output'].shape}, {saved['noun_output'].shape}")
+    check(list(saved["narration_id"]) == [r["narration_id"] for r in test_rows] == list(ids),
+          f"narration ids {list(saved['narration_id'])[:4]}...")
+    check(list(saved["labels"]["verb"]) == [r["verb_class"] for r in test_rows]
+          and list(saved["labels"]["noun"]) == [r["noun_class"] for r in test_rows],
+          "labels differ from the rows")
+    check(np.array_equal(saved["verb_output"], verb) and np.array_equal(saved["noun_output"], noun),
+          "the score pickle differs from test(cfg)'s result")
+    for name, scores in (("verb", verb), ("noun", noun)):
+        sums = scores.sum(axis=1)
+        check(bool(np.isfinite(scores).all()) and bool((np.abs(sums - 1.0) <= 1e-3).all()),
+              f"{name} rows sum to {sums.min()}..{sums.max()}, not 1 (one view a chain)")
+    check(not stats.of("test_warn"), f"chains with missing views: {stats.of('test_warn')}")
+    (final,) = stats.of("test_final")
+    recomputed = {}
+    for k in (1, 5):
+        v, n = _topk(verb, verb_l, k), _topk(noun, noun_l, k)
+        for t, hit in (("verb", v), ("noun", n), ("action", v & n)):
+            recomputed[f"{t}_top{k}_acc"] = f"{hit.mean() * 100:.2f}"
+    check(recomputed == {k: final[k] for k in recomputed},
+          f"top-k from the pickle {recomputed}, the meter's {final}")
+    titers = stats.of("test_iter")
+    check(len(titers) == n_test, f"{len(titers)} test_iter records")
+    print(f"[gru] test(cfg) {len(test_rows)} chains, one view each, B={tcfg.TEST.BATCH_SIZE}: "
+          f"test iterations (s, wait s) {[(round(r['time_diff'], 5), round(r['dt_data'], 5)) for r in titers]}; "
+          f"{len(test_rows) / wall:.2f} chains/s over all of test(cfg); {final} | {card}",
+          flush=True)
+
+    yaml_path = os.path.join(root, "gru.yaml")
+    with open(yaml_path, "w") as f:
+        f.write(tcfg.dump())
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "asf_tpu_torch.tools.run_net", "--cfg", yaml_path,
+         "TRAIN.ENABLE", "False", "TEST.ENABLE", "True", "TEST.SAVE_RESULTS_PATH",
+         "gru_cli.pkl"], cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"run_net exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(os.path.join(tcfg.OUTPUT_DIR, "scores", "gru_cli.pkl"), "rb") as f:
+        cli = pickle.load(f)
+    diff = max(float(np.abs(cli["verb_output"] - verb).max()),
+               float(np.abs(cli["noun_output"] - noun).max()))
+    print(f"[gru] python -m asf_tpu_torch.tools.run_net --cfg gru.yaml TRAIN.ENABLE False "
+          f"TEST.ENABLE True: exit 0 in {time.perf_counter() - t0:.1f} s, scores {diff:.3g} max "
+          f"abs from the in-process run (gated at {CLI_TOL})", flush=True)
+    check(diff <= CLI_TOL and list(cli["narration_id"]) == list(ids),
+          f"the CLI's scores differ by {diff} > {CLI_TOL}")
     return train_launches, test_launches
 
 
@@ -1190,12 +1597,14 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as root:
         loop_launches, loop_cfg = phase_train_cfg(card, train_timing["flagship"]["ms"], root)
         test_launches = phase_test_cfg(card, loop_cfg)
-        epic_train_launches, epic_test_launches = phase_epic(
+        epic_train_launches, epic_test_launches, epic_ckpt = phase_epic(
             card, loop_cfg, train_timing["flagship"]["ms"], root)
+        gru_train_launches, gru_test_launches = phase_gru(card, epic_ckpt, root)
     check_instructions(card, sass, kernels)
     paths = {"eval": eval_launches, **{f"train {k}": v for k, v in train_launches.items()},
              "train(cfg)": loop_launches, "test(cfg)": test_launches,
-             "epic train(cfg)": epic_train_launches, "epic test(cfg)": epic_test_launches}
+             "epic train(cfg)": epic_train_launches, "epic test(cfg)": epic_test_launches,
+             "gru train(cfg)": gru_train_launches, "gru test(cfg)": gru_test_launches}
     line = []
     for name, res in kernels.items():
         geometry, batch = LINE_BATCH[name]

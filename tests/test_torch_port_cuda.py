@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card;
 the prefetcher's stream handling (fed by loader worker processes too) and
-the launches of ``train(cfg)`` and ``test(cfg)``, for VGG-Sound and for
-EPIC-KITCHENS verb/noun.
+the launches of ``train(cfg)`` and ``test(cfg)``, for VGG-Sound, for
+EPIC-KITCHENS verb/noun and for the GRU sequence model.
 
 Imports no JAX, so it runs on a machine with a GPU and no JAX:
 
@@ -91,10 +91,11 @@ def test_kernel_matches_plain_version(name, precision, wide):
     _held_to_plain(name, p, _wave(p, 4), p.geometry(p.clip_samples))
 
 
-@pytest.mark.parametrize("batch", [16, 32])
+@pytest.mark.parametrize("batch", [16, 32, 320])
 def test_bf16_kernel_at_the_epic_geometry(batch):
     """EPIC-KITCHENS clips: 47,975 samples -> 400 frames, three 128-frame
-    tiles and a 16-frame tail; B = 32 trains, B = 16 is the ragged val batch."""
+    tiles and a 16-frame tail; B = 32 trains, B = 16 is the ragged val batch,
+    320 rows are the GRU's 16 chains of 20 windows."""
     disable_tf32()
     cfg = epic_cfg()
     p = LogMelParams(cfg, "cuda")
@@ -435,3 +436,43 @@ def test_epic_test_cfg_counts_its_launches(tmp_path):
     with open(tmp_path / "out" / "scores" / "test_scores.pkl", "rb") as f:
         saved = pickle.load(f)
     assert list(saved["narration_id"]) == list(ids) == [f"test_{i}" for i in range(5)]
+
+
+def _tiny_gru_cfg(tmp_path, splits):
+    """``_tiny_epic_cfg`` read as chains: ``AudioSlowFastGRU`` with a GRU of
+    H = 32, at most 4 windows (the 2.5 s rows give 2, the 1.2 s rows 1)."""
+    cfg = _tiny_epic_cfg(tmp_path, splits)
+    cfg.MODEL.MODEL_NAME = "AudioSlowFastGRU"
+    cfg.TRAIN.DATASET = cfg.TEST.DATASET = "EpicKitchensGRU"
+    cfg.MODEL.GRU_HIDDEN_SIZE = 32
+    cfg.AUDIO_DATA.MAX_NB_SPECTROGRAMS = 4
+    return cfg
+
+
+def test_gru_train_cfg_counts_its_launches(tmp_path):
+    """12 train chains (3 steps), precise BN over 2 batches, 6 val chains
+    (4 + 2): one launch of ``logmel_bf16`` a batch, 7."""
+    cfg = _tiny_gru_cfg(tmp_path, {"train": 12, "val": 6})
+    for w in WRAPPERS:
+        w.launches = 0
+    state = train(cfg)
+    torch.cuda.synchronize()
+    assert _launches() == {w.__name__: (7 if w.__name__ == "logmel_bf16" else 0)
+                           for w in WRAPPERS}
+    assert state.step == 3 and state.model.head.gru.weight_ih_l0.is_cuda
+
+
+def test_gru_test_cfg_counts_its_launches(tmp_path):
+    """5 test chains in one view each, B = 4 (4 + 1): 2 launches; each
+    chain's verb and noun rows are one probability row."""
+    cfg = _tiny_gru_cfg(tmp_path, {"test": 5})
+    for w in WRAPPERS:
+        w.launches = 0
+    (verb, noun), _, ids = run_test(cfg)
+    torch.cuda.synchronize()
+    assert _launches() == {w.__name__: (2 if w.__name__ == "logmel_bf16" else 0)
+                           for w in WRAPPERS}
+    assert verb.shape == (5, 6) and noun.shape == (5, 8)
+    for scores in (verb, noun):
+        np.testing.assert_allclose(scores.sum(axis=1), 1.0, rtol=0, atol=1e-4)
+    assert list(ids) == [f"test_{i}" for i in range(5)]
