@@ -1,9 +1,12 @@
 """EPIC-KITCHENS-100 datasets from per-video wav files: one clip an item
-(``EpicKitchens``), or one chain of windows an item (``EpicKitchensGRU``).
+(``EpicKitchens``), or one chain of windows an item (``EpicKitchensGRU``);
+with PDDL state labels, ``EpicKitchensWithPDDL`` and
+``EpicKitchensGRUwithPDDL``.
 
 Counterpart of ``asf_tpu/data/epickitchens.py:50-376`` (``EpicKitchens``,
 regular items), ``:588-642`` (``get_refs_batch``) and ``:379-391,
-711-781`` (``_gru_region``, ``_get_item_gru``, ``EpicKitchensGRU``). Splits ``train``,
+711-800`` (``_gru_region``, ``_get_item_gru``, ``EpicKitchensGRU`` and the
+two PDDL datasets). Splits ``train``,
 ``val``, ``test`` (``TEST.NUM_ENSEMBLE_VIEWS`` records a row, each taking
 its own evenly spaced window) and ``train+val`` (both lists);
 ``EPICKITCHENS.SINGLE_BATCH`` keeps the first ``TRAIN.BATCH_SIZE`` rows of
@@ -39,6 +42,11 @@ video, at least 1. Chain placement draws no random numbers, so
 ``get_batch`` reads item by item; the JAX package's vectorised chain path
 (``_get_refs_batch_gru``) serves its device store, which is not ported. A
 test split of chains has one view a row.
+
+Every key of a record's label is kept as a table of the split's rows and
+carried by regular and chain items alike: ``verb`` and ``noun``, and for the
+PDDL records ``precs`` and ``posts``, (rows, P) float32 tables of their
+rows' ``precs_vec``/``posts_vec`` in {-1, 0, 1}.
 """
 
 from __future__ import annotations
@@ -49,7 +57,12 @@ import numpy as np
 
 from ..utils.logging import get_logger
 from .build import register_dataset
-from .records import EpicKitchensAudioRecord, EpicKitchensAudioRecordGRU
+from .records import (
+    EpicKitchensAudioRecord,
+    EpicKitchensAudioRecordGRU,
+    EpicKitchensAudioRecordGRUwithPDDL,
+    EpicKitchensAudioRecordWithPDDL,
+)
 from .sampling import get_start_end_idx, get_start_end_idx_batch, item_rng
 from .transforms import get_transforms
 from .vggsound import load_wav, read_annotations
@@ -126,7 +139,7 @@ class EpicKitchens:
         self._start = np.asarray([r.start_audio_sample for r in records], np.int64)
         self._num = np.asarray([r.num_audio_samples for r in records], np.int64)
         labels = [r.label for r in records]
-        self._labels = {k: np.asarray([lab[k] for lab in labels]) for k in ("verb", "noun")}
+        self._labels = {k: np.asarray([lab[k] for lab in labels]) for k in labels[0]}
         self._narration = [r.metadata["narration_id"] for r in records]
         self._transformation = [r.transformation for r in records]
         self._record_tables(records)
@@ -348,3 +361,17 @@ class EpicKitchensGRU(EpicKitchens):
         return [self._chain(i, item_rng(self.cfg.RNG_SEED, epoch, i)
                             if self._transformation[i] != "none" else None)
                 for i in (int(i) for i in indices)]
+
+
+@register_dataset("EpicKitchensWithPDDL")
+class EpicKitchensWithPDDL(EpicKitchens):
+    """``EpicKitchens`` whose labels add ``precs`` and ``posts`` (P,) float32."""
+
+    record_type = EpicKitchensAudioRecordWithPDDL
+
+
+@register_dataset("EpicKitchensGRUwithPDDL")
+class EpicKitchensGRUwithPDDL(EpicKitchensGRU):
+    """``EpicKitchensGRU`` whose labels add ``precs`` and ``posts`` (P,) float32."""
+
+    record_type = EpicKitchensAudioRecordGRUwithPDDL

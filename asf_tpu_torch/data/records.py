@@ -2,12 +2,16 @@
 
 Copy of ``asf_tpu/data/records.py:21-86`` (``timestamp_to_sec``,
 ``AudioRecord``, ``EpicKitchensAudioRecord``) and ``:88-121``
-(``EpicKitchensAudioRecordGRU``). The JAX records take a
+(``EpicKitchensAudioRecordGRU``), and ``:125-144`` (the PDDL records, whose
+labels add ``precs`` and ``posts``). The JAX records take a
 DataFrame's ``(index, row)`` pair and read the narration id from the index;
 these take one dict row that carries it under ``narration_id``
 (``vggsound.read_annotations(path, index_key="narration_id")`` gives such
-rows from a DataFrame and from a list of dicts alike). The PDDL records
-come with the state head's slice.
+rows from a DataFrame and from a list of dicts alike). A PDDL row whose
+``precs_vec`` or ``posts_vec`` is empty (its verb is not an action of the
+domain, ``asf_tpu/state/dataset_prep.py:extend_data``) raises a
+``ValueError`` naming its ``narration_id``; the JAX package fails later, in
+``np.stack``.
 """
 
 from __future__ import annotations
@@ -107,3 +111,29 @@ class EpicKitchensAudioRecordGRU(EpicKitchensAudioRecord):
         if "noun_embedding" in self._series:
             return np.asarray(self._series["noun_embedding"]).reshape(-1)
         return np.array([])
+
+
+def _state_label(record: AudioRecord) -> dict:
+    """verb, noun, and ``precs``/``posts`` (P,) float32 of ``record``'s row."""
+    row = record._series
+    label = {"verb": row["verb_class"], "noun": row["noun_class"]}
+    for key in ("precs", "posts"):
+        vec = np.asarray(row[f"{key}_vec"], np.float32).reshape(-1)
+        if not vec.size:
+            raise ValueError(
+                f"narration {record._index}: empty {key}_vec (its verb is not an action of the "
+                "PDDL domain)")
+        label[key] = vec
+    return label
+
+
+class EpicKitchensAudioRecordWithPDDL(EpicKitchensAudioRecord):
+    @property
+    def label(self):
+        return _state_label(self)
+
+
+class EpicKitchensAudioRecordGRUwithPDDL(EpicKitchensAudioRecordGRU):
+    @property
+    def label(self):
+        return _state_label(self)

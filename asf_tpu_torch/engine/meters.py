@@ -3,7 +3,7 @@
 Counterpart of ``asf_tpu/engine/meters.py:29-245`` (``Timer``,
 ``ScalarMeter``, ``TrainMeter``, ``ValMeter``, ``mem_stats``), of its
 single-task ``TestMeter`` (:393-460) and of the verb/noun meters
-(``EPICTrainMeter``, ``EPICValMeter``, ``EPICTestMeter``, :245-537, without
+(``EPICTrainMeter``, ``EPICValMeter``, ``EPICTestMeter``, :245-537, with
 their state-head parts), with the same ``json_stats`` records
 (``_type``, ``epoch``, ``iter``, ``dt``, ``dt_data``, ``dt_net``, ``eta``,
 ``top1_err``, ``top5_err``, ``loss``, ``lr``; ``test_iter`` with
@@ -14,8 +14,10 @@ iteration is logged every ``LOG_PERIOD`` (the JAX package: every 20).
 Memory: the card's peak allocation (``gpu_mem``, the upstream name) and the
 host's resident set. The verb/noun meters keep ``verb``, ``noun`` and
 ``action`` (both right) top-1 and top-5 accuracies; an EPIC val epoch is
-best when its action top-1 is above every earlier epoch's. The state and
-sliding-window meters come with their slices.
+best when its action top-1 is above every earlier epoch's. With the state
+head the train meter (``with_state``) also keeps ``state_loss``, and the
+val meter each batch's ``state_metrics`` that the loop hands it, whose
+means over the batches its ``val_epoch`` record carries. The sliding-window meter comes with its slice.
 
 The loops log an iteration's stats at a later flush, once its numbers are
 off the card, so they take the iteration's times (``iter_times()``) at its
@@ -335,17 +337,16 @@ class _EPICAccuracies:
 
 class EPICTrainMeter(_BaseEpochMeter, _EPICAccuracies):
     """Verb/noun/action train meter: the windowed accuracies and the
-    ``loss``, ``verb_loss`` and ``noun_loss`` of each iteration, their
-    means over the epoch."""
+    ``loss``, ``verb_loss`` and ``noun_loss`` (with the state head also
+    ``state_loss``) of each iteration, their means over the epoch."""
 
-    LOSSES = ("loss", "verb_loss", "noun_loss")
-
-    def __init__(self, epoch_iters: int, cfg):
+    def __init__(self, epoch_iters: int, cfg, with_state: bool = False):
         super().__init__(epoch_iters, cfg)
         self._init_accs(cfg.LOG_PERIOD)
         self.lr = 0.0
-        self.losses = {n: ScalarMeter(cfg.LOG_PERIOD) for n in self.LOSSES}
-        self.loss_totals = {n: 0.0 for n in self.LOSSES}
+        self.loss_names = ("loss", "verb_loss", "noun_loss") + ("state_loss",) * with_state
+        self.losses = {n: ScalarMeter(cfg.LOG_PERIOD) for n in self.loss_names}
+        self.loss_totals = {n: 0.0 for n in self.loss_names}
 
     def reset(self):
         self._reset_accs()
@@ -357,7 +358,7 @@ class EPICTrainMeter(_BaseEpochMeter, _EPICAccuracies):
     def update_stats(self, top1_acc, top5_acc, losses: Dict[str, float], lr, mb_size):
         """``losses`` may hold more (``grad_norm``); the meter takes its own."""
         self.lr = lr
-        for k in self.LOSSES:
+        for k in self.loss_names:
             self.losses[k].add_value(losses[k])
             self.loss_totals[k] += losses[k] * mb_size
         self._add_accs(top1_acc, top5_acc, mb_size)
@@ -398,18 +399,25 @@ class EPICTrainMeter(_BaseEpochMeter, _EPICAccuracies):
 
 class EPICValMeter(_BaseEpochMeter, _EPICAccuracies):
     """Verb/noun/action val meter; an epoch is best when its action top-1
-    accuracy is above every earlier epoch's."""
+    accuracy is above every earlier epoch's. With the state head it keeps
+    each batch's ``metrics.state_metrics`` (``update_state_metrics``)."""
 
     def __init__(self, max_iter: int, cfg):
         super().__init__(max_iter, cfg)
         self._init_accs(cfg.LOG_PERIOD)
         self.max_top1_acc = {name: 0.0 for name in _TASKS}
+        self.state_stats: Dict[str, list] = {}
 
     def reset(self):
         self._reset_accs()
+        self.state_stats = {}
 
     def update_stats(self, top1_acc, top5_acc, mb_size):
         self._add_accs(top1_acc, top5_acc, mb_size)
+
+    def update_state_metrics(self, metrics_dict: Dict[str, float]):
+        for k, v in metrics_dict.items():
+            self.state_stats.setdefault(k, []).append(v)
 
     def log_iter_stats(self, cur_epoch, cur_iter, times=None):
         if (cur_iter + 1) % self.cfg.LOG_PERIOD != 0:
@@ -438,6 +446,8 @@ class EPICValMeter(_BaseEpochMeter, _EPICAccuracies):
             stats[f"{name}_top1_acc"] = top1[name]
             stats[f"{name}_top5_acc"] = top5[name]
             stats[f"max_{name}_top1_acc"] = self.max_top1_acc[name]
+        for k, v in self.state_stats.items():
+            stats[k] = float(np.mean(v))
         log_json_stats(stats)
         return is_best, {f"{k}_top1_acc": v for k, v in top1.items()}
 

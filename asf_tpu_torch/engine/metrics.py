@@ -12,6 +12,14 @@ they are numpy with scikit-learn's definitions: average precision steps
 over the distinct scores (a run of tied scores is one threshold), and the
 AUC is the trapezoid over the ROC points of those thresholds, so a tied
 run counts as half right.
+
+``state_metrics`` (``:168-201``) scores the state head on the host, in
+numpy for the same reason: for each chain's first and last real window,
+the macro and micro F1, recall and precision over its P attributes
+(scikit-learn's definitions with ``zero_division=0``: per class
+``2 tp / (true + predicted)``, ``tp / predicted``, ``tp / true``, macro the
+mean over the classes present in the labels or the predictions), and the
+accuracy, each averaged over the chains.
 """
 
 from __future__ import annotations
@@ -134,3 +142,58 @@ def get_map(preds, labels) -> float:
         return 0.0
     return float(np.mean([average_precision(labels[:, k], preds[:, k])
                           for k in range(labels.shape[1])]))
+
+
+STATE_METRICS = ("f1_macro", "f1_micro", "recall_macro", "recall_micro", "precision_macro",
+                 "precision_micro", "accuracy")
+
+
+def _divide(num: np.ndarray, den: np.ndarray) -> np.ndarray:
+    """num / den, 0 where den is 0 (scikit-learn's ``zero_division=0``)."""
+    return np.where(den > 0, num / np.where(den > 0, den, 1), 0.0)
+
+
+def _state_scores(y_true: np.ndarray, y_pred: np.ndarray) -> dict:
+    """The ``STATE_METRICS`` of one window's (P,) class ids."""
+    classes = np.union1d(y_true, y_pred)
+    true = (y_true[None, :] == classes[:, None])
+    pred = (y_pred[None, :] == classes[:, None])
+    tp = (true & pred).sum(axis=1).astype(np.float64)
+    n_true, n_pred = true.sum(axis=1).astype(np.float64), pred.sum(axis=1).astype(np.float64)
+    out = {}
+    for avg, (t, nt, np_) in (("macro", (tp, n_true, n_pred)),
+                              ("micro", (tp.sum(keepdims=True), n_true.sum(keepdims=True),
+                                         n_pred.sum(keepdims=True)))):
+        out[f"f1_{avg}"] = float(np.mean(_divide(2.0 * t, nt + np_)))
+        out[f"recall_{avg}"] = float(np.mean(_divide(t, nt)))
+        out[f"precision_{avg}"] = float(np.mean(_divide(t, np_)))
+    out["accuracy"] = float(np.mean(y_true == y_pred))
+    return out
+
+
+def state_metrics(preds, labels, lengths, split: str = "Val") -> dict:
+    """``{split}/state/{metric}_{precs,posts}``: the ``STATE_METRICS`` of the
+    first window (preconditions) and of the last real window
+    (postconditions) of each chain, averaged over the chains. ``preds``
+    (B, N, P, 3) are the state head's outputs (softmaxed, then the arg max
+    over the last axis), ``labels`` the (B, N, P, 3) one-hot labels of
+    ``steps.prepare_state_labels``, ``lengths`` (B,) the chains' windows.
+
+    The JAX package's 3-D branch (``asf_tpu/engine/metrics.py:178-182``)
+    takes the mean of the logits over the class axis as the class, a quirk
+    of the reference that its loops never reach (they pass windows); here a
+    3-D input raises."""
+    preds = np.asarray(preds)
+    labels = np.asarray(labels)
+    if preds.ndim != 4:
+        raise ValueError(f"state_metrics takes (B, N, P, 3) windows, not {preds.shape}: pass a "
+                         "single clip's (B, P, 3) as one window, preds[:, None]")
+    e = np.exp(preds - preds.max(axis=3, keepdims=True))
+    preds_cls = (e / e.sum(axis=3, keepdims=True)).argmax(axis=3)  # (B, N, P)
+    labels_cls = labels.argmax(axis=3)
+    acc = {f"{n}_{kind}": [] for n in STATE_METRICS for kind in ("precs", "posts")}
+    for i, length in enumerate(np.asarray(lengths)):
+        for kind, w in (("precs", 0), ("posts", length - 1)):
+            for n, v in _state_scores(labels_cls[i, w], preds_cls[i, w]).items():
+                acc[f"{n}_{kind}"].append(v)
+    return {f"{split}/state/{k}": float(np.mean(v)) for k, v in acc.items()}

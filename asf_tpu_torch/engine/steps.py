@@ -1,13 +1,16 @@
 """The train step: waveforms -> loss -> gradients -> optimizer update, on the device.
 
 Counterparts of ``asf_tpu/engine/steps.py``: ``is_gru_model`` (:43),
+``prepare_state_labels`` (``prepare_state_labels_jnp``, :131-143),
 ``make_loss_fn`` (:146-184), ``_apply_model`` (:187-199),
 ``make_device_metrics`` (:202-236), ``_make_step_core``/``make_train_step``
 (:279-351), ``make_eval_step`` (:419-432) and ``init_state`` (:505-531).
-The GRU model takes its chains' ``lengths`` and ``host_lengths`` beside the
-pathways; its loss and metrics are the verb/noun ones, a row a chain.
-The single-task and verb/noun
-branches are ported; the state head's come with that head. The JAX
+The GRU model takes its chains' ``lengths``, ``noun_embedding`` and
+``host_lengths`` beside the pathways; its loss and metrics are the
+verb/noun ones, a row a chain. With the state head the loss is the mean of
+the verb, noun and state losses, the state's over labels built on the
+device from the chains' ``lengths`` (a single clip is one window holding
+its postcondition), and the metrics add ``state_pred_max_abs``. The JAX
 package's scanned K-step dispatch (:354-416) exists for XLA dispatch costs
 and is not ported; its ``WANDB`` watch histograms (:315-335) come with the
 observers.
@@ -62,18 +65,57 @@ def has_state_head(cfg) -> bool:
     return is_multitask(cfg) and not cfg.MODEL.ONLY_ACTION_RECOGNITION
 
 
+def prepare_state_labels(precs: torch.Tensor, posts: torch.Tensor, lengths: torch.Tensor,
+                         n_windows: int) -> torch.Tensor:
+    """(B, N, P, 3) one-hot state labels of chains of ``lengths`` windows:
+    the preconditions ``precs`` (B, P) in {-1, 0, 1} in the first half of
+    each chain (windows below ``length // 2``), the postconditions ``posts``
+    after, and -1 in every padded window (n >= length). Built where the
+    tensors lie, with no read of their values on the host."""
+    n_idx = torch.arange(n_windows, device=precs.device)[None, :, None]  # (1, N, 1)
+    half = (lengths // 2)[:, None, None]
+    state = torch.where(n_idx < half, precs[:, None, :], posts[:, None, :])  # (B, N, P)
+    # one_hot of (state + 1) as an int: an index outside [0, 3) gives zeros
+    classes = torch.arange(3, device=precs.device)
+    one_hot = ((state + 1).long()[..., None] == classes).float()
+    padded = (n_idx >= lengths[:, None, None])[..., None]
+    return torch.where(padded, -1.0, one_hot)
+
+
+def state_of(preds, lengths=None):
+    """The state head's output as windows, (B, N, P, 3), and the chains'
+    ``lengths``: a single clip's (B, P, 3) is one window (lengths None)."""
+    x_s = preds[2]
+    if x_s.dim() == 3:
+        x_s = x_s[:, None]
+    if lengths is None:
+        lengths = torch.ones(x_s.shape[0], dtype=torch.int32, device=x_s.device)
+    return x_s, lengths
+
+
 def make_loss_fn(cfg):
-    """``compute(preds, labels) -> (total_loss, dict of components)``."""
-    if has_state_head(cfg):
-        raise NotImplementedError("the state head's loss is not ported yet")
+    """``compute(preds, labels, lengths=None) -> (total_loss, dict of
+    components)``; ``lengths`` (B,) are the chains' (the state head's
+    labels; one window a clip when None)."""
     loss_fun = losses_mod.get_loss_func(cfg.MODEL.LOSS_FUNC)
     multitask = is_multitask(cfg)
+    with_state = has_state_head(cfg)
 
-    def compute(preds, labels):
+    def compute(preds, labels, lengths=None):
         if not multitask:
             key = "class_id" if "class_id" in labels else "verb"
             loss = loss_fun(preds, labels[key])
             return loss, {"loss": loss}
+        if with_state:
+            x_s, lengths = state_of(preds, lengths)
+            loss_verb = loss_fun(preds[0], labels["verb"])
+            loss_noun = loss_fun(preds[1], labels["noun"])
+            state_labels = prepare_state_labels(labels["precs"], labels["posts"], lengths,
+                                                x_s.shape[1])
+            loss_state = losses_mod.state_cross_entropy(x_s, state_labels)
+            total = (loss_verb + loss_noun + loss_state) / 3.0
+            return total, {"loss": total, "verb_loss": loss_verb, "noun_loss": loss_noun,
+                           "state_loss": loss_state}
         loss_verb = loss_fun(preds[0], labels["verb"])
         loss_noun = loss_fun(preds[1], labels["noun"])
         total = (loss_verb + loss_noun) / 2.0
@@ -83,10 +125,11 @@ def make_loss_fn(cfg):
 
 
 def make_device_metrics(cfg):
-    """Per-batch train accuracies on the step's predictions, left on the device."""
-    if has_state_head(cfg):
-        raise NotImplementedError("the state head's metrics are not ported yet")
+    """Per-batch train accuracies on the step's predictions, left on the
+    device; with the state head also ``state_pred_max_abs``, the largest
+    |state logit|, which the "State looking strange" alert reads."""
     multitask = is_multitask(cfg)
+    with_state = has_state_head(cfg)
 
     def compute(preds, labels):
         if multitask:
@@ -96,11 +139,14 @@ def make_device_metrics(cfg):
             a1, a5 = metrics_mod.multitask_topk_accuracies(
                 (x_v, x_n), (labels["verb"], labels["noun"]), (1, 5)
             )
-            return {
+            out = {
                 "verb_top1": v1, "verb_top5": v5,
                 "noun_top1": n1, "noun_top5": n5,
                 "action_top1": a1, "action_top5": a5,
             }
+            if with_state:
+                out["state_pred_max_abs"] = preds[2].float().abs().max()
+            return out
         key = "class_id" if "class_id" in labels else "verb"
         k1, k5 = metrics_mod.topk_accuracies(preds, labels[key], (1, 5))
         return {"top1_err": 100.0 - k1, "top5_err": 100.0 - k5}
@@ -137,9 +183,10 @@ def make_train_step(cfg, device):
     """``train_step(state, batch, lr) -> (parts, stats)``.
 
     ``batch`` holds ``waveform`` (B, S) float32 or int16, ``n_valid`` (B,)
-    and ``labels`` (``class_id``, or ``verb`` and ``noun``) on ``device``;
-    for the GRU model waveform (B, N, S), n_valid (B, N), ``lengths`` (B,)
-    and ``host_lengths``.
+    and ``labels`` (``class_id``, or ``verb`` and ``noun``, with the state
+    head also ``precs`` and ``posts`` (B, P)) on ``device``; for the GRU
+    model waveform (B, N, S), n_valid (B, N), ``lengths`` (B,),
+    ``noun_embedding`` (B, 512) and ``host_lengths``.
     The model, optimizer and step count in ``state`` are updated in place.
     """
     pipeline = make_input_pipeline(cfg, device)
@@ -152,7 +199,7 @@ def make_train_step(cfg, device):
         model.train()
         paths = pipeline(batch["waveform"], batch["n_valid"], state.generator, train=True)
         preds = forward(model, paths, batch)
-        loss, parts = loss_fn(preds, batch["labels"])
+        loss, parts = loss_fn(preds, batch["labels"], batch.get("lengths"))
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         set_lr(optimizer, lr)

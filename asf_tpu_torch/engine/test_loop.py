@@ -10,7 +10,9 @@ card), ensemble each clip's ``TEST.NUM_ENSEMBLE_VIEWS`` views in a
 ``narration_id``), pickle ``{output, labels}`` (verb/noun:
 ``{verb_output, noun_output, labels: {verb, noun}, narration_id}``) to
 ``OUTPUT_DIR/scores/TEST.SAVE_RESULTS_PATH`` and log the top-k accuracies
-(and, for VGG-Sound, ``vggsound_stats``).
+(and, for VGG-Sound, ``vggsound_stats``). A model with the state head is
+tested on its verb and noun scores; its state output is left aside, as in
+the JAX package (``:51-60``).
 
 The loop does not wait for the card a batch: each batch's probabilities,
 labels and clip ids are queued as one copy into pinned host memory with an
@@ -71,7 +73,7 @@ def perform_test(test_loader, model, eval_step, test_meter, device):
             test_meter.data_toc()
             probs = eval_step(model, batch)
             labels = batch["labels"]
-            out = ([*probs, labels["verb"], labels["noun"]] if multitask
+            out = ([*probs[:2], labels["verb"], labels["noun"]] if multitask
                    else [probs, labels["class_id"]])
             host = [t.to("cpu", non_blocking=True) for t in (*out, batch["index"])]
             event = None
@@ -116,12 +118,9 @@ def test(cfg, device=None):
 
     Runs on the current CUDA device unless ``device="cpu"``; raises when
     CUDA is absent and no device was given. Raises ``NotImplementedError``
-    for the state head (a third ``NUM_CLASSES``), ``TEST.SLIDE.ENABLE`` and
-    ``NUM_SHARDS > 1``, which come with later slices.
+    for ``TEST.SLIDE.ENABLE`` and ``NUM_SHARDS > 1``, which come with later
+    slices.
     """
-    if len(cfg.MODEL.NUM_CLASSES) > 2:
-        raise NotImplementedError(
-            f"NUM_CLASSES {list(cfg.MODEL.NUM_CLASSES)}: the state head is not ported yet")
     if cfg.TEST.SLIDE.ENABLE or cfg.TEST.DATASET.lower().endswith("slide"):
         raise NotImplementedError("sliding-window testing comes with the EPIC slice")
     if cfg.NUM_SHARDS > 1 or cfg.NUM_GPUS > 1:

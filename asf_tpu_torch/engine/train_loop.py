@@ -18,9 +18,15 @@ numbers; the flush itself falls between one iteration's ``iter_toc`` and
 the next one's ``iter_tic``. The LR of each step is a host float from
 ``utils/lr_policy``.
 
+With the state head each step also copies ``state_loss`` and
+``state_pred_max_abs``, and at the flush ``check_state_alerts`` reads every
+iteration's (the JAX package's ``:54-71``): all |state logits| at most 0.1
+raises "State looking strange", a state loss of 40 or more the loss alert.
+Without the observers their sink is ``AlertLog``, which logs a warning, as
+the JAX package's ``ScalarLogger.alert`` does without W&B.
+
 Not ported here: the observers (TensorBoard, W&B), the AOT warm-up, the
-device store, the state-head alerts, the profiler window and the K-step
-dispatch.
+device store, the profiler window and the K-step dispatch.
 """
 
 from __future__ import annotations
@@ -42,7 +48,14 @@ from ..utils.misc import log_model_info
 from ..utils.torch_setup import disable_tf32, resolve_device
 from .eval_loop import build_val_meter, eval_epoch
 from .meters import EPICTrainMeter, TrainMeter
-from .steps import apply_model, init_state, is_multitask, make_eval_step, make_train_step
+from .steps import (
+    apply_model,
+    has_state_head,
+    init_state,
+    is_multitask,
+    make_eval_step,
+    make_train_step,
+)
 
 logger = get_logger(__name__)
 
@@ -52,10 +65,34 @@ def check_nan_losses(loss: float):
         raise RuntimeError(f"ERROR: Got NaN losses {loss}")
 
 
+class AlertLog:
+    """The alert sink without observers: each alert a warning."""
+
+    def alert(self, title: str, text: str):
+        logger.warning("%s: %s", title, text)
+
+
+def check_state_alerts(parts_h: dict, stats_h: dict, sink) -> None:
+    """The state head's alerts, with the reference's triggers: every
+    |state logit| at most 0.1 (``state_pred_max_abs``) -> "State looking
+    strange"; ``state_loss`` at least 40 -> "state_loss >= 40". Nothing
+    without a state head or a sink."""
+    if sink is None:
+        return
+    max_abs = stats_h.get("state_pred_max_abs")
+    if max_abs is not None and max_abs <= 0.1:
+        sink.alert("State looking strange",
+                   f"State predictions < 0.1 (max |pred| = {max_abs:.4g})")
+    state_loss = parts_h.get("state_loss")
+    if state_loss is not None and state_loss >= 40.0:
+        sink.alert("state_loss >= 40", f"Anomalous state loss: {state_loss:.4g}")
+
+
 # The step's numbers each meter takes, in the order they are copied off the card.
 _SINGLE = ("loss", "top1_err", "top5_err")
 _MULTI = ("loss", "verb_loss", "noun_loss", "verb_top1", "noun_top1", "action_top1",
           "verb_top5", "noun_top5", "action_top5")
+_STATE = _MULTI + ("state_loss", "state_pred_max_abs")
 
 
 def _update(train_meter, values: dict, lr: float, rows: int) -> None:
@@ -71,7 +108,10 @@ def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, de
     data_size = len(train_loader)
     log_period = max(1, cfg.LOG_PERIOD)
     cuda = torch.device(device).type == "cuda"
-    names = _MULTI if isinstance(train_meter, EPICTrainMeter) else _SINGLE
+    names = _SINGLE
+    if isinstance(train_meter, EPICTrainMeter):
+        names = _STATE if has_state_head(cfg) else _MULTI
+    alerts = AlertLog()
     pending = []  # (iteration, lr, rows, host times, the step's ``names`` on the card)
     fetches = []  # ([(iteration, lr, rows, host times)], host tensor, event or None)
 
@@ -83,6 +123,7 @@ def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, de
             for (it, lr, rows, times), row in zip(metas, host.tolist()):
                 values = dict(zip(names, row))
                 check_nan_losses(values["loss"])
+                check_state_alerts(values, values, alerts)
                 _update(train_meter, values, lr, rows)
                 train_meter.log_iter_stats(cur_epoch, it, times)
 
@@ -149,9 +190,10 @@ def precise_bn(cfg, state, loader, pipeline, device, num_iters: int) -> None:
 
 
 def build_train_meter(cfg, epoch_iters: int):
-    """The verb/noun meter for a verb/noun head, else the single-task one."""
+    """The verb/noun meter (with ``state_loss`` for the state head) for a
+    verb/noun head, else the single-task one."""
     if is_multitask(cfg):
-        return EPICTrainMeter(epoch_iters, cfg)
+        return EPICTrainMeter(epoch_iters, cfg, with_state=has_state_head(cfg))
     return TrainMeter(epoch_iters, cfg)
 
 

@@ -1,6 +1,6 @@
 """Entry points of the port: the flagship eval forward and train step, and
-the configurations of the flagship, of EPIC-KITCHENS verb/noun and of the
-EPIC-KITCHENS GRU sequence model.
+the configurations of the flagship, of EPIC-KITCHENS verb/noun, of the
+EPIC-KITCHENS GRU sequence model and of their state heads.
 
 ``entry`` is the counterpart of ``__graft_entry__.py:17-65``: the VGG-Sound
 ``AudioSlowFast`` (SlowFast-R50, 309 classes, bf16 trunk) behind the log-mel
@@ -108,6 +108,42 @@ def epic_gru_cfg():
     cfg.SOLVER.STEPS = [0, 15, 17]
     cfg.SOLVER.MAX_EPOCH = 20
     cfg.RNG_SEED = 25
+    return cfg
+
+
+def epic_state_cfg():
+    """The single-clip state head, ``models/asf/config/asf-state.yaml``, on
+    the flagship trunk: ``epic_cfg()`` with ``MODEL.ONLY_ACTION_RECOGNITION``
+    off (the heads ``[97, 300]`` and a third class appended by
+    ``build_model``, the attributes of ``MODEL.PDDL_ATTRIBUTES``) on
+    ``EpicKitchensWithPDDL`` rows (``precs_vec``, ``posts_vec``), B = 128,
+    precise BN over up to 64 batches, fine-tuned from an EPIC verb/noun
+    checkpoint.
+
+    The YAML's ``EPICKITCHENS.SINGLE_BATCH`` (keep the first batch of each
+    list, a debugging switch) and its 4 loader workers are not taken; the
+    trunk follows ``epic_cfg``'s rule. ``MODEL.PDDL_ATTRIBUTES`` (a csv with
+    an ``attribute`` column) and the data paths are the caller's.
+    """
+    cfg = epic_cfg()
+    cfg.TRAIN.DATASET = cfg.TEST.DATASET = "EpicKitchensWithPDDL"
+    cfg.MODEL.ONLY_ACTION_RECOGNITION = False
+    cfg.TRAIN.BATCH_SIZE = cfg.TEST.BATCH_SIZE = 128
+    cfg.BN.NUM_BATCHES_PRECISE = 64
+    return cfg
+
+
+def epic_gru_state_cfg():
+    """The GRU state head, ``models/asf/config/asf-gru-state.yaml``:
+    ``epic_gru_cfg()`` with ``MODEL.ONLY_ACTION_RECOGNITION`` off on
+    ``EpicKitchensGRUwithPDDL`` chains (B = 16, seed 25): the three state
+    projections over each window and the chain's 512-wide CLIP noun
+    embedding as the GRU's h0 (so H = 512). ``MODEL.PDDL_ATTRIBUTES`` and
+    the data paths are the caller's.
+    """
+    cfg = epic_gru_cfg()
+    cfg.TRAIN.DATASET = cfg.TEST.DATASET = "EpicKitchensGRUwithPDDL"
+    cfg.MODEL.ONLY_ACTION_RECOGNITION = False
     return cfg
 
 

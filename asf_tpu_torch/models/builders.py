@@ -1,11 +1,15 @@
 """Model builders and registry.
 
-Counterparts of ``asf_tpu/models/builders.py:29-289, 366-387``: the
+Counterparts of ``asf_tpu/models/builders.py:29-289, 366-395``: the
 two-pathway SlowFast trunk with its lateral fusions, ``AudioSlowFast``,
 ``AudioSlowFastGRU`` (the same trunk over every window of a chain, then
 the GRU head), ``MODEL_REGISTRY`` and ``build_model`` (with the upstream
 "SlowFast" alias). Submodule names follow the JAX tree (``s1``,
-``s1_fuse``, ..., ``s5``, ``head``).
+``s1_fuse``, ..., ``s5``, ``head``). With ``MODEL.ONLY_ACTION_RECOGNITION``
+off both models carry the state head: ``build_model`` appends the number
+of PDDL attributes (the rows of the ``MODEL.PDDL_ATTRIBUTES`` csv) to a
+two-class ``NUM_CLASSES``, and a verb/noun config that gets no third class
+raises.
 
 Initialisation follows the JAX package from an explicit ``torch.Generator``:
 convs draw Caffe2 MSRA fill (normal, std sqrt(2 / fan_out), fan_out =
@@ -158,6 +162,7 @@ class AudioSlowFast(_SlowFastTrunk):
             dropout_rate=cfg.MODEL.DROPOUT_RATE,
             act_func=cfg.MODEL.HEAD_ACT,
             dtype=dtype,
+            with_state=_with_state(cfg),
         )
 
     def forward(self, xs):
@@ -167,7 +172,8 @@ class AudioSlowFast(_SlowFastTrunk):
 @register_model("AudioSlowFastGRU")
 class AudioSlowFastGRU(_SlowFastTrunk):
     """The SlowFast trunk over every window of a chain, then the GRU head:
-    [slow, fast] (B, N, 1, T', F) and ``lengths`` (B,) -> (verb, noun)."""
+    [slow, fast] (B, N, 1, T', F) and ``lengths`` (B,) -> (verb, noun), and
+    for the state head the state (B, N, P, 3) from the ``noun_embedding`` h0."""
 
     def __init__(self, cfg, dtype=torch.float32):
         super().__init__(cfg, dtype)
@@ -184,11 +190,11 @@ class AudioSlowFastGRU(_SlowFastTrunk):
         )
 
     def forward(self, xs, lengths, noun_embedding=None, host_lengths=None):
-        """``noun_embedding`` feeds only the state head's h0 (not ported), so
-        it is taken and not read; ``host_lengths`` as in ``gru.run_gru``."""
+        """``noun_embedding`` (B, 512) is the state head's h0 (the action-only
+        head does not read it); ``host_lengths`` as in ``gru.run_gru``."""
         chains = tuple(xs[0].shape[:2])
         feats = self.trunk([x.reshape(-1, *x.shape[2:]) for x in xs])
-        return self.head(feats, lengths, chains, host_lengths)
+        return self.head(feats, lengths, chains, host_lengths, noun_embedding)
 
 
 @torch.no_grad()
@@ -219,13 +225,26 @@ def build_model(cfg, device=None, generator: torch.Generator | None = None) -> n
     name = {"SlowFast": "AudioSlowFast"}.get(name, name)
     if name not in MODEL_REGISTRY:
         raise KeyError(f"Model {name} not registered; have {sorted(MODEL_REGISTRY)}")
-    if name == "AudioSlowFast" and not cfg.MODEL.ONLY_ACTION_RECOGNITION:
+    if name in ("AudioSlowFast", "AudioSlowFastGRU") and not cfg.MODEL.ONLY_ACTION_RECOGNITION:
         _maybe_append_state_classes(cfg)
+        if len(cfg.MODEL.NUM_CLASSES) == 2:
+            raise ValueError(
+                f"NUM_CLASSES {list(cfg.MODEL.NUM_CLASSES)} with MODEL.ONLY_ACTION_RECOGNITION "
+                "off: the state head needs the PDDL attributes, MODEL.PDDL_ATTRIBUTES = "
+                f"{cfg.MODEL.PDDL_ATTRIBUTES!r} names no .csv of them (or set "
+                "ONLY_ACTION_RECOGNITION on for verb/noun alone)")
     model = MODEL_REGISTRY[name](cfg, dtype=compute_dtype(cfg))
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_weights(model, cfg.MODEL.FC_INIT_STD, generator)
     return model.to(device)
+
+
+def _with_state(cfg) -> bool:
+    """The single-clip head's state projections: a third class and
+    ``ONLY_ACTION_RECOGNITION`` off (``asf_tpu/models/builders.py:232-236``)."""
+    nc = cfg.MODEL.NUM_CLASSES
+    return not cfg.MODEL.ONLY_ACTION_RECOGNITION and len(nc) > 2
 
 
 def _maybe_append_state_classes(cfg):

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Nine phases, each of which raises on a
+Run from the root of a checkout. Ten phases, each of which raises on a
 failed check (the script then exits non-zero and prints no result):
 
 1. Device and build: needs a CUDA device; prints the card's name and power
@@ -131,7 +131,29 @@ failed check (the script then exits non-zero and prints no result):
    pickle's verb (24, 97) and noun (24, 300) rows each sum to 1, with the
    narration ids and labels in order and the meter's top-k; ``run_net``
    must give the same scores within ``CLI_TOL``.
-9. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
+9. The state head, on phase 7's videos with PDDL labels: ``attributes.csv``
+   from the port's ``parse_pddl("pddl/full_domain.pddl")`` (30
+   attributes), each row's verb mapped onto one of its 33 actions for
+   ``precs_vec``/``posts_vec``, and a seeded 512-wide ``noun_embedding``
+   a chain. The GRU state model (``entry.epic_gru_state_cfg``: phase 8's
+   model with the three state projections and the embedding as the GRU's
+   h0) on phase 8's chains: ``train(cfg)`` fine-tuned from phase 7's
+   checkpoint skips exactly ``head.gru``, ``head.projection_to_dim_in``
+   and the three projections, frozen BN stays put, ``logmel_bf16``
+   launches once a batch, and the val record carries the 14
+   ``Val/state/*`` means. On the trained state: one 320-row step timed
+   beside phase 8's action-only one and profiled (busy ms, idle share),
+   the sync debug mode's list (none
+   from the train or eval forward with h0 or from the loss with its state
+   labels), the (16, 20, 30, 3) state output whose 3 classes sum to 1 in
+   eval mode, and the host time of the val flush's state labels and
+   ``state_metrics`` for that batch. Then the single-clip state model
+   (``entry.epic_state_cfg``, B = 128) on phase 7's rows: ``train(cfg)``
+   (2 steps, precise BN, val) with the same gates, one step timed with
+   its peak memory and profiled. Each model's ``test(cfg)`` (its few
+   batches read in process) pickles verb and noun rows that sum to their
+   views, and ``run_net`` gives them within ``CLI_TOL``.
+10. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
    both above the card's float32 CUDA-core peak at their main-path shapes
    (``logmel_bf16`` flagship at B = 64 and 128, ``logmel_bf16_wide`` at
    B = 64); no ``HGMMA`` and no ``HMMA`` in the SASS of ``logmel_f32``'s
@@ -139,7 +161,7 @@ failed check (the script then exits non-zero and prints no result):
    slices, so that a run against an older tree of the kernels (a
    parent-versus-change comparison) still prints all its times before it
    fails.
-10. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+11. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -190,11 +212,12 @@ FLUSH_BYTES = 512 * 2**20  # written before each cold launch: ten times the L2
 # at 8, bf16 at 128; train: bf16 at 64, flagship and wide; train(cfg): bf16
 # at 64 and at 32, its ragged last val batch; EPIC: bf16 at 32 and at 16,
 # its ragged last val batch; the GRU: bf16 at 320 rows, 16 chains of 20
-# windows), and the 2048-tap supports of logmel_f32 and logmel_bf16 at 8.
+# windows; the single-clip state head: bf16 at 128), and the 2048-tap
+# supports of logmel_f32 and logmel_bf16 at 8.
 KERNEL_CASES = [
     ("logmel_f32", "HIGHEST", "flagship", (8, 128)),
     ("logmel_bf16", "BFLOAT16", "flagship", (8, 32, 64, 128)),
-    ("logmel_bf16", "BFLOAT16", "epic", (16, 32, 320)),
+    ("logmel_bf16", "BFLOAT16", "epic", (16, 32, 128, 320)),
     ("logmel_f32", "HIGHEST", "wide", (8,)),
     ("logmel_bf16", "BFLOAT16", "wide", (8,)),
     ("logmel_bf16_wide", "BFLOAT16", "wide", (8, 64)),
@@ -1330,8 +1353,8 @@ def sync_calls(fn) -> list:
     return found
 
 
-def gru_profile(card: str, step, state, batch, lr: float, wall_ms: float) -> None:
-    """One train step of ``batch`` under ``torch.profiler`` (device activity):
+def step_profile(tag: str, card: str, fn, wall_ms: float) -> None:
+    """One train step, ``fn()``, under ``torch.profiler`` (device activity):
     busy ms, idle share against ``wall_ms``, the GRU kernels' ms (names with
     ``rnn`` or ``gru``) and the top kernels."""
     from torch.autograd import DeviceType
@@ -1341,12 +1364,12 @@ def gru_profile(card: str, step, state, batch, lr: float, wall_ms: float) -> Non
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step(state, batch, lr)
+        fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        print(f"[gru] the profiler recorded no device activity: the GRU kernels' time is not "
-              f"measured | {card}", flush=True)
+        print(f"[{tag}] the profiler recorded no device activity: busy time not measured | "
+              f"{card}", flush=True)
         return
     by_name = {}
     for e in kernels:
@@ -1354,7 +1377,7 @@ def gru_profile(card: str, step, state, batch, lr: float, wall_ms: float) -> Non
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3
     gru = {k: v for k, v in by_name.items() if any(t in k.lower() for t in ("rnn", "gru"))}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    print(f"[gru] one train step of the largest bucket under torch.profiler: device busy "
+    print(f"[{tag}] one train step under torch.profiler: device busy "
           f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.3f} of the step's wall "
           f"{wall_ms:.3f} ms without the profiler, {len(kernels)} kernels; the GRU's kernels "
           f"{sum(gru.values()):.3f} ms: "
@@ -1505,7 +1528,7 @@ def phase_gru(card: str, epic_ckpt: str, root: str) -> tuple[dict, dict]:
               + (f"; peak device memory {t['peak_gib']:.2f} GiB" if "peak_gib" in t else "")
               + f" | {card}", flush=True)
     check_padded_windows(card, cfg, big)
-    gru_profile(card, step, state, big, lr, timing[max_nb]["wall_ms"])
+    step_profile("gru", card, lambda: step(state, big, lr), timing[max_nb]["wall_ms"])
     # The calls that make the host wait for the card: none in the GRU
     # model's forward, whose packing reads host lengths; those of a step.
     with torch.inference_mode():
@@ -1585,7 +1608,293 @@ def phase_gru(card: str, epic_ckpt: str, root: str) -> tuple[dict, dict]:
           f"abs from the in-process run (gated at {CLI_TOL})", flush=True)
     check(diff <= CLI_TOL and list(cli["narration_id"]) == list(ids),
           f"the CLI's scores differ by {diff} > {CLI_TOL}")
-    return train_launches, test_launches
+    return train_launches, test_launches, timing[max_nb]
+
+
+def write_state(root: str, cfg, src: str, dst: str, embeddings: bool) -> tuple[list, str]:
+    """Phase 9's state lists: the rows of ``root/<src>_{train,val,test}.pkl``
+    with each verb mapped onto one of the actions of
+    ``pddl/full_domain.pddl`` and its ``precs_vec``/``posts_vec`` (the
+    port's ``state/pddl.py``), and with ``embeddings`` a seeded 512-wide
+    ``noun_embedding``; writes ``root/<dst>_*.pkl`` and
+    ``root/attributes.csv``, points ``cfg`` at them and returns the test
+    rows and the number of attributes."""
+    from asf_tpu_torch.state.pddl import parse_pddl
+
+    actions, attributes = parse_pddl(str(ROOT / "pddl" / "full_domain.pddl"))
+    csv = os.path.join(root, "attributes.csv")
+    with open(csv, "w") as f:
+        f.write("attribute\n" + "".join(f"{a}\n" for a in attributes))
+    vectors = [a.vectorize(attributes) for a in actions]
+    rng = np.random.default_rng(9)
+    lists = {}
+    for split in ("train", "val", "test"):
+        with open(os.path.join(root, f"{src}_{split}.pkl"), "rb") as f:
+            rows = pickle.load(f)
+        for r in rows:
+            r["precs_vec"], r["posts_vec"] = vectors[r["verb_class"] % len(vectors)]
+            if embeddings:
+                r["noun_embedding"] = rng.standard_normal(512).astype(np.float32)
+        with open(os.path.join(root, f"{dst}_{split}.pkl"), "wb") as f:
+            pickle.dump(rows, f)
+        lists[split] = rows
+    c = cfg.EPICKITCHENS
+    c.AUDIO_DATA_FILE, c.ANNOTATIONS_DIR = os.path.join(root, "epic_audio"), root
+    c.PROCESSED_TRAIN_LIST = f"{dst}_train.pkl"
+    c.PROCESSED_VAL_LIST = f"{dst}_val.pkl"
+    c.PROCESSED_TEST_LIST = f"{dst}_test.pkl"
+    cfg.MODEL.PDDL_ATTRIBUTES = csv
+    return lists["test"], len(attributes)
+
+
+def state_train(tag: str, card: str, cfg, ckpt: str, want: int, skipped: list):
+    """``train(cfg)`` of a state model fine-tuned from ``ckpt``, with phase
+    8's gates: ``want`` launches of ``logmel_bf16``, exactly the head leaves
+    ``skipped`` skipped, frozen BN untouched, finite losses (``state_loss``
+    too) and the val record's 14 ``Val/state/*`` means in [0, 1]. Returns
+    the state, the launch counts and the records."""
+    from asf_tpu_torch.checkpoint import manager as cu
+    from asf_tpu_torch.engine import train
+    from asf_tpu_torch.engine.optimizer import is_frozen_bn_param
+    from asf_tpu_torch.tools.loop_probe import StatsLog
+
+    torch.cuda.reset_peak_memory_stats()
+    with StatsLog() as stats:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        state = train(cfg)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        wall = time.perf_counter() - t0
+    print(f"[{tag}] train(cfg): launches {launches} (expected {want} of logmel_bf16), "
+          f"{wall:.1f} s in train(cfg), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; warnings {stats.warnings}",
+          flush=True)
+    check(launches == {k: (want if k == "logmel_bf16" else 0) for k in REPLACES},
+          f"{tag} train(cfg): launches {launches}, expected {want} of logmel_bf16")
+    got = sorted(w.split()[3] for w in stats.warnings if w.startswith("pyth load: skipped"))
+    check(got == skipped, f"the fine-tune skipped {got}, not {skipped}")
+    check(stats.start_epochs == [1] and all(p.is_cuda for p in state.model.parameters()),
+          f"started at epoch {stats.start_epochs}, or parameters off the card")
+    src = cu.load_checkpoint(ckpt)["model_state"]
+    sd = state.model.state_dict()
+    frozen = [k for k in src if k.endswith((".weight", ".bias")) and is_frozen_bn_param(k)]
+    moved = [k for k in frozen if not torch.equal(sd[k].cpu(), src[k])]
+    check(frozen and not moved, f"{len(moved)} of {len(frozen)} frozen BN parameters moved")
+    iters = stats.of("train_iter")
+    losses = [r[k] for r in iters for k in ("loss", "verb_loss", "noun_loss", "state_loss")]
+    check(iters and all(math.isfinite(v) for v in losses), f"train losses {losses}")
+    (val,) = stats.of("val_epoch")
+    means = {k: v for k, v in val.items() if k.startswith("Val/state/")}
+    check(len(means) == 14 and all(0.0 <= v <= 1.0 for v in means.values()),
+          f"val state means {means}")
+    print(f"[{tag}] train iterations (s, wait s) {_times(iters)}; val iterations "
+          f"{_times(stats.of('val_iter'))}; train_epoch {stats.of('train_epoch')}; val_epoch "
+          f"{val} | {card}", flush=True)
+    return state, launches
+
+
+def state_test(tag: str, card: str, cfg, rows: list, views: int, want: int) -> dict:
+    """``test(cfg)`` of a state model from its run's checkpoint, in this
+    process and through ``run_net``: ``want`` launches, the verb (97) and
+    noun (300) rows each summing to ``views``, the ids and labels of
+    ``rows``, the meter's top-k from the pickle, the CLI within
+    ``CLI_TOL``. Returns the launch counts."""
+    from asf_tpu_torch.checkpoint import manager as cu
+    from asf_tpu_torch.engine import test
+    from asf_tpu_torch.tools.loop_probe import StatsLog
+
+    tcfg = cfg.clone()
+    tcfg.TEST.CHECKPOINT_FILE_PATH = cu.get_path_to_checkpoint(cfg.OUTPUT_DIR, 1)
+    tcfg.TEST.SAVE_RESULTS_PATH = f"{tag}_scores.pkl"
+    # A few batches, read in this process: 8 workers would take ~9 s to
+    # start (phases 6-8 drive them at test time).
+    tcfg.DATA_LOADER.NUM_WORKERS = 0
+    with StatsLog() as stats:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        (verb, noun), (verb_l, noun_l), ids = test(tcfg)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        wall = time.perf_counter() - t0
+    check(launches == {k: (want if k == "logmel_bf16" else 0) for k in REPLACES},
+          f"{tag} test(cfg): launches {launches}, expected {want} of logmel_bf16")
+    with open(os.path.join(tcfg.OUTPUT_DIR, "scores", tcfg.TEST.SAVE_RESULTS_PATH), "rb") as f:
+        saved = pickle.load(f)
+    check(set(saved) == {"verb_output", "noun_output", "labels", "narration_id"},
+          f"score pickle keys {sorted(saved)}")
+    check(saved["verb_output"].shape == (len(rows), 97)
+          and saved["noun_output"].shape == (len(rows), 300)
+          and np.array_equal(saved["verb_output"], verb)
+          and np.array_equal(saved["noun_output"], noun),
+          f"scores {saved['verb_output'].shape}, {saved['noun_output'].shape}")
+    check(list(ids) == [r["narration_id"] for r in rows]
+          and list(verb_l) == [r["verb_class"] for r in rows]
+          and list(noun_l) == [r["noun_class"] for r in rows], "ids or labels differ")
+    for scores in (verb, noun):
+        sums = scores.sum(axis=1)
+        check(bool(np.isfinite(scores).all()) and bool((np.abs(sums - views) <= 1e-3).all()),
+              f"rows sum to {sums.min()}..{sums.max()}, not {views}")
+    (final,) = stats.of("test_final")
+    for k in (1, 5):
+        v, n = _topk(verb, verb_l, k), _topk(noun, noun_l, k)
+        for t, hit in (("verb", v), ("noun", n), ("action", v & n)):
+            check(final[f"{t}_top{k}_acc"] == f"{hit.mean() * 100:.2f}",
+                  f"{t} top-{k} {final}")
+    yaml_path = os.path.join(os.path.dirname(cfg.OUTPUT_DIR), f"{tag}.yaml")
+    with open(yaml_path, "w") as f:
+        f.write(tcfg.dump())
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "asf_tpu_torch.tools.run_net", "--cfg", yaml_path,
+         "TRAIN.ENABLE", "False", "TEST.ENABLE", "True", "TEST.SAVE_RESULTS_PATH",
+         f"{tag}_cli.pkl"], cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"run_net exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(os.path.join(tcfg.OUTPUT_DIR, "scores", f"{tag}_cli.pkl"), "rb") as f:
+        cli = pickle.load(f)
+    diff = max(float(np.abs(cli["verb_output"] - verb).max()),
+               float(np.abs(cli["noun_output"] - noun).max()))
+    print(f"[{tag}] test(cfg): {len(rows)} rows x {views} views, launches {launches}, "
+          f"{wall:.2f} s; {final}; run_net --cfg {tag}.yaml: exit 0 in "
+          f"{time.perf_counter() - t1:.1f} s, scores {diff:.3g} max abs from the in-process "
+          f"run (gated at {CLI_TOL}) | {card}", flush=True)
+    check(diff <= CLI_TOL and list(cli["narration_id"]) == list(ids),
+          f"the CLI's scores differ by {diff} > {CLI_TOL}")
+    return launches
+
+
+def phase_state(card: str, epic_ckpt: str, root: str, gru_step: dict) -> dict:
+    """Phase 9: the state head. The GRU state model (``epic_gru_state_cfg``)
+    on phase 8's chains, then the single-clip one (``epic_state_cfg``) on
+    phase 7's rows, each fine-tuned from phase 7's checkpoint, timed and
+    checked on its trained state, then tested; returns the launch counts of
+    the four in-process runs by path."""
+    from asf_tpu_torch.data.loader import collate, construct_loader
+    from asf_tpu_torch.data.prefetch import Prefetcher
+    from asf_tpu_torch.engine import metrics
+    from asf_tpu_torch.engine.steps import (
+        make_loss_fn, make_train_step, prepare_state_labels, state_of)
+    from asf_tpu_torch.entry import epic_gru_state_cfg, epic_state_cfg
+
+    projections = ["head.projection_0", "head.projection_1", "head.projection_min_1"]
+    out = {}
+    cfg = epic_gru_state_cfg()
+    cfg.SOLVER.MAX_EPOCH = 1
+    cfg.LOG_PERIOD = 1
+    cfg.LOG_MODEL_INFO = False
+    cfg.DATA_LOADER.NUM_WORKERS = LOADER_WORKERS
+    cfg.OUTPUT_DIR = os.path.join(root, "gru_state_out")
+    cfg.TRAIN.CHECKPOINT_FILE_PATH = epic_ckpt
+    test_rows, n_attr = write_state(root, cfg, "gru", "gru_state", embeddings=True)
+    batch, max_nb = cfg.TRAIN.BATCH_SIZE, cfg.AUDIO_DATA.MAX_NB_SPECTROGRAMS
+    n_train, n_val = len(GRU_TRAIN_BUCKETS), len(GRU_VAL_BUCKETS)
+    state, out["gru state train(cfg)"] = state_train(
+        "gru state", card, cfg, epic_ckpt,
+        n_train + min(cfg.BN.NUM_BATCHES_PRECISE, n_train) + n_val,
+        sorted(["head.gru", "head.projection_to_dim_in"] + projections))
+    check(cfg.MODEL.NUM_CLASSES == [97, 300, n_attr] == [97, 300, 30],
+          f"NUM_CLASSES {cfg.MODEL.NUM_CLASSES}")
+
+    # The 320-row state step on the trained state, beside phase 8's
+    # action-only one; the state output, its sync-free head, h0 and labels.
+    ld = construct_loader(cfg, "train")
+    idx = ld._indices()
+    rows = idx[GRU_TRAIN_BUCKETS.index(max_nb) * batch:][:batch]
+    (big,) = list(Prefetcher([collate(ld.dataset.get_batch(0, rows), max_nb)],
+                             next(state.model.parameters()).device, depth=0))
+    ld.close()
+    step = make_train_step(cfg, big["waveform"].device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = step_times(lambda: step(state, big, 0.01))
+    t["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[gru state] step at {batch} chains x {max_nb} windows ({batch * max_nb} rows): "
+          f"{t['ms']:.3f} ms on the card (CUDA events, median of 3 runs of 2 after one), wall "
+          f"{t['wall_ms']:.3f} ms, queued in {t['dispatch_ms']:.3f} ms, peak device memory "
+          f"{t['peak_gib']:.2f} GiB; phase 8's action-only step {gru_step['ms']:.3f} ms (wall "
+          f"{gru_step['wall_ms']:.3f}, queued {gru_step['dispatch_ms']:.3f}): "
+          f"{t['ms'] / gru_step['ms']:.4f} x | {card}", flush=True)
+    step_profile("gru state", card, lambda: step(state, big, 0.01), t["wall_ms"])
+    loss_fn = make_loss_fn(cfg)
+    model, lengths, labels = state.model, big["lengths"], big["labels"]
+    with torch.no_grad():
+        paths = step.pipeline(big["waveform"], big["n_valid"])
+        model.train()
+        forward = sync_calls(lambda: model(paths, lengths, big["noun_embedding"],
+                                           host_lengths=big["host_lengths"]))
+        preds = model(paths, lengths, big["noun_embedding"], host_lengths=big["host_lengths"])
+        loss = sync_calls(lambda: loss_fn(preds, labels, lengths))
+        model.eval()
+        evals = sync_calls(lambda: model(paths, lengths, big["noun_embedding"],
+                                         host_lengths=big["host_lengths"]))
+        probs = model(paths, lengths, big["noun_embedding"], host_lengths=big["host_lengths"])
+    in_step = sync_calls(lambda: step(state, big, 0.01))
+    print(f"[gru state] synchronizing calls (torch.cuda.set_sync_debug_mode 'warn'): the "
+          f"train forward with h0 {forward}, the loss with its state labels {loss}, the eval "
+          f"forward {evals}, a train step {in_step}", flush=True)
+    check(not forward and not loss and not evals,
+          f"the state head, h0 or label builder waits for the card: {forward + loss + evals}")
+    x_s = probs[2]
+    per_window = x_s.reshape(batch * max_nb, 3, n_attr).sum(dim=1)  # the raw view's classes
+    check(tuple(x_s.shape) == (batch, max_nb, n_attr, 3)
+          and bool(torch.isfinite(x_s).all())
+          and float((per_window - 1.0).abs().max()) <= 1e-5,
+          f"state output {tuple(x_s.shape)}, class sums off by "
+          f"{float((per_window - 1.0).abs().max())}")
+    host = [v.cpu() for v in (state_of(probs)[0], labels["precs"], labels["posts"], lengths)]
+    t0 = time.perf_counter()
+    state_labels = prepare_state_labels(host[1], host[2], host[3], max_nb)
+    scores = metrics.state_metrics(host[0].numpy(), state_labels.numpy(), host[3].numpy())
+    host_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[gru state] state output {tuple(x_s.shape)}, each window's 3 x {n_attr} classes sum "
+          f"to 1; the val flush's host work for this batch (state labels, then state_metrics "
+          f"on {batch} chains: {2 * batch} windows x 7 metrics) {host_ms:.3f} ms on the host "
+          f"clock; {scores} | {card}", flush=True)
+    del state, big, preds, probs
+    out["gru state test(cfg)"] = state_test("gru_state", card, cfg, test_rows, 1,
+                                            len(GRU_TEST_BUCKETS))
+
+    cfg = epic_state_cfg()
+    cfg.SOLVER.MAX_EPOCH = 1
+    cfg.LOG_PERIOD = 1
+    cfg.LOG_MODEL_INFO = False
+    cfg.DATA_LOADER.NUM_WORKERS = LOADER_WORKERS
+    cfg.OUTPUT_DIR = os.path.join(root, "state_out")
+    cfg.TRAIN.CHECKPOINT_FILE_PATH = epic_ckpt
+    test_rows, _ = write_state(root, cfg, "epic", "epic_state", embeddings=False)
+    batch = cfg.TRAIN.BATCH_SIZE
+    n_train, n_val = EPIC_TRAIN // batch, -(-EPIC_VAL // batch)
+    state, out["state train(cfg)"] = state_train(
+        "state", card, cfg, epic_ckpt,
+        n_train + min(cfg.BN.NUM_BATCHES_PRECISE, n_train) + n_val, projections)
+    ld = construct_loader(cfg, "train")
+    (first,) = list(Prefetcher([collate(ld.dataset.get_batch(0, ld._indices()[:batch]))],
+                               next(state.model.parameters()).device, depth=0))
+    ld.close()
+    step = make_train_step(cfg, first["waveform"].device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = step_times(lambda: step(state, first, 0.001))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_profile("state", card, lambda: step(state, first, 0.001), t["wall_ms"])
+    with torch.no_grad():
+        state.model.eval()
+        probs = state.model(step.pipeline(first["waveform"], first["n_valid"]))
+    check(tuple(probs[2].shape) == (batch, n_attr, 3)
+          and float((probs[2].sum(-1) - 1.0).abs().max()) <= 1e-5,
+          f"single-clip state output {tuple(probs[2].shape)}")
+    print(f"[state] step at B={batch} x {cfg.AUDIO_DATA.NUM_FRAMES} frames: {t['ms']:.3f} ms on "
+          f"the card (CUDA events, median of 3 runs of 2 after one), wall {t['wall_ms']:.3f} "
+          f"ms, queued in {t['dispatch_ms']:.3f} ms, {batch / t['ms'] * 1e3:.1f} clips/s; peak "
+          f"device memory {peak:.2f} GiB; state output {tuple(probs[2].shape)} | {card}",
+          flush=True)
+    del state, first, probs
+    out["state test(cfg)"] = state_test(
+        "state", card, cfg, test_rows, cfg.TEST.NUM_ENSEMBLE_VIEWS,
+        -(-EPIC_TEST * cfg.TEST.NUM_ENSEMBLE_VIEWS // cfg.TEST.BATCH_SIZE))
+    return out
 
 
 def main() -> None:
@@ -1599,12 +1908,14 @@ def main() -> None:
         test_launches = phase_test_cfg(card, loop_cfg)
         epic_train_launches, epic_test_launches, epic_ckpt = phase_epic(
             card, loop_cfg, train_timing["flagship"]["ms"], root)
-        gru_train_launches, gru_test_launches = phase_gru(card, epic_ckpt, root)
+        gru_train_launches, gru_test_launches, gru_step = phase_gru(card, epic_ckpt, root)
+        state_launches = phase_state(card, epic_ckpt, root, gru_step)
     check_instructions(card, sass, kernels)
     paths = {"eval": eval_launches, **{f"train {k}": v for k, v in train_launches.items()},
              "train(cfg)": loop_launches, "test(cfg)": test_launches,
              "epic train(cfg)": epic_train_launches, "epic test(cfg)": epic_test_launches,
-             "gru train(cfg)": gru_train_launches, "gru test(cfg)": gru_test_launches}
+             "gru train(cfg)": gru_train_launches, "gru test(cfg)": gru_test_launches,
+             **state_launches}
     line = []
     for name, res in kernels.items():
         geometry, batch = LINE_BATCH[name]

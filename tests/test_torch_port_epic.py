@@ -307,14 +307,16 @@ def test_multitask_head_matches_flax(head_setup, dtype, train_mode):
 
 
 def test_head_class_lists():
-    """A one-element list is one task; a third element (the state head)
-    raises until its slice."""
+    """A one-element list is one task; a third element with
+    ``ONLY_ACTION_RECOGNITION`` off is the state head's attributes."""
     _, pcfg = _tiny_model_cfgs()
     pcfg.MODEL.NUM_CLASSES = [6]
     assert "head.projection.weight" in build_model(pcfg, "cpu").state_dict()
     pcfg.MODEL.NUM_CLASSES = [6, 8, 5]
-    with pytest.raises(NotImplementedError, match="state head"):
-        build_model(pcfg, "cpu")
+    pcfg.MODEL.ONLY_ACTION_RECOGNITION = False
+    sd = build_model(pcfg, "cpu").state_dict()
+    for name, rows in (("verb", 6), ("noun", 8), ("min_1", 5), ("0", 5), ("1", 5)):
+        assert sd[f"head.projection_{name}.weight"].shape[0] == rows, name
 
 
 # -- meters ----------------------------------------------------------------------

@@ -260,11 +260,20 @@ def test_gru_head_matches_flax(train_mode):
         assert np.abs(g.numpy() - np.asarray(w)).max() <= F32_TOL
 
 
-def test_the_state_configuration_points_at_the_roadmap():
+def test_the_state_configuration_points_at_the_roadmap(tmp_path):
+    """With ``ONLY_ACTION_RECOGNITION`` off the GRU model carries the state
+    head: the attributes' csv adds a third class and the three state
+    projections; without it, the config names what is missing."""
     _, pcfg = _model_cfgs()
     pcfg.MODEL.ONLY_ACTION_RECOGNITION = False
-    with pytest.raises(NotImplementedError, match="item 5.4"):
+    with pytest.raises(ValueError, match="PDDL attributes"):
         build_model(pcfg, "cpu")
+    (tmp_path / "attributes.csv").write_text("attribute\nclean\nopen\nwet\n")
+    pcfg.MODEL.PDDL_ATTRIBUTES = str(tmp_path / "attributes.csv")
+    sd = build_model(pcfg, "cpu").state_dict()
+    assert pcfg.MODEL.NUM_CLASSES == [*CLASSES, 3]
+    for name in ("projection_min_1", "projection_0", "projection_1"):
+        assert sd[f"head.{name}.weight"].shape == (3, sd["head.projection_verb.weight"].shape[1])
 
 
 def test_gru_weights_draw_from_the_generator():
