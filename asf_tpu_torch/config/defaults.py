@@ -5,8 +5,8 @@ paths, ``train(cfg)`` and ``test(cfg)`` read, copied key-for-key from
 ``asf_tpu/config/defaults.py`` so that YAMLs written for the JAX package
 merge unchanged, plus a ``GPU`` node: the counterparts of
 ``TPU.COMPUTE_DTYPE``, ``TPU.DSP_PRECISION``, ``TPU.SPEC_AUGMENT`` and
-``TPU.INT16_TRANSFER``. There is no kernel on/off
-switch: on CUDA tensors the hand-written kernels always run, on CPU tensors
+``TPU.INT16_TRANSFER``. There is no kernel
+on/off switch: on CUDA tensors the hand-written kernels always run, on CPU tensors
 their plain PyTorch versions do.
 """
 
@@ -53,10 +53,18 @@ _C.TEST.NUM_ENSEMBLE_VIEWS = 10
 # The score pickle's name under OUTPUT_DIR/scores ("" is test_scores.pkl).
 _C.TEST.SAVE_RESULTS_PATH = ""
 
-# Sliding-window evaluation comes with the EPIC slice: test(cfg) raises
-# when it is enabled. Its window keys come with it.
+# Sliding-window testing over untrimmed EPIC videos (EpicKitchensSlide):
+# windows of WIN_SIZE s every HOP_SIZE s over each whole video, or inside
+# each action (INSIDE_ACTION_BOUNDS), or one window an action
+# (PER_ACTION_INSTANCE). LABEL_FRAME is read by neither package; it is kept
+# so that the repo's slide YAMLs merge.
 _C.TEST.SLIDE = CfgNode()
 _C.TEST.SLIDE.ENABLE = False
+_C.TEST.SLIDE.WIN_SIZE = 1.0
+_C.TEST.SLIDE.HOP_SIZE = 1.0
+_C.TEST.SLIDE.LABEL_FRAME = 0.5
+_C.TEST.SLIDE.INSIDE_ACTION_BOUNDS = True
+_C.TEST.SLIDE.PER_ACTION_INSTANCE = True
 
 # ---------------------------------------------------------------------------
 # ResNet options

@@ -94,9 +94,7 @@ class EpicKitchens:
             raise ValueError(f"Split '{mode}' not supported for {type(self).__name__}")
         self.cfg = cfg
         self.mode = mode
-        # One view a row for chains (a GRU test set), as the JAX package decides it.
-        self._num_clips = (cfg.TEST.NUM_ENSEMBLE_VIEWS
-                           if mode == "test" and "GRU" not in cfg.TEST.DATASET else 1)
+        self._num_clips = self._test_views() if mode == "test" else 1
         self.clip_size = int(round(cfg.AUDIO_DATA.SAMPLING_RATE * cfg.AUDIO_DATA.CLIP_SECS))
         self.clip_samples = self.clip_size - 1
         self.int16 = bool(cfg.GPU.INT16_TRANSFER)
@@ -110,6 +108,11 @@ class EpicKitchens:
 
     def set_epoch(self, epoch: int):
         self._epoch = int(epoch)
+
+    def _test_views(self) -> int:
+        """Items a test row gives: ``TEST.NUM_ENSEMBLE_VIEWS``, one for chains
+        (a GRU test set), as the JAX package decides it."""
+        return 1 if "GRU" in self.cfg.TEST.DATASET else self.cfg.TEST.NUM_ENSEMBLE_VIEWS
 
     # -- record list -------------------------------------------------------
     def _annotation_files(self) -> list[str]:
@@ -127,12 +130,7 @@ class EpicKitchens:
         for f in files:
             if not os.path.exists(f):
                 raise FileNotFoundError(f"{f} dir not found")
-        records = []
-        for f in files:
-            rows = read_annotations(f, index_key="narration_id")
-            if self.cfg.EPICKITCHENS.SINGLE_BATCH:
-                rows = rows[: self.cfg.TRAIN.BATCH_SIZE]
-            records += [self.record_type(row, self.cfg) for row in rows]
+        records = self._records(files)
         if not records:
             raise ValueError(f"Failed to load EPIC-KITCHENS split {self.mode} from {files}")
         self._video = [r.untrimmed_video_name for r in records]
@@ -145,6 +143,17 @@ class EpicKitchens:
         self._record_tables(records)
         logger.info("Constructed %s %s (size %d) from %s", type(self).__name__, self.mode,
                     len(self), files)
+
+    def _records(self, files: list[str]) -> list:
+        """A record of each row of ``files`` (under ``EPICKITCHENS.SINGLE_BATCH``
+        the first ``TRAIN.BATCH_SIZE`` rows of each)."""
+        records = []
+        for f in files:
+            rows = read_annotations(f, index_key="narration_id")
+            if self.cfg.EPICKITCHENS.SINGLE_BATCH:
+                rows = rows[: self.cfg.TRAIN.BATCH_SIZE]
+            records += [self.record_type(row, self.cfg) for row in rows]
+        return records
 
     def _record_tables(self, records: list) -> None:
         """Tables a subclass keeps beside the rows' (none here)."""

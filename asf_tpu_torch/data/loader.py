@@ -53,6 +53,7 @@ import torch
 from torch.utils import data as tud
 
 from . import epickitchens as _epic  # noqa: F401  (registers the dataset)
+from . import epickitchens_slide as _epic_slide  # noqa: F401  (registers the dataset)
 from . import vggsound as _vgg  # noqa: F401  (registers the dataset)
 from .build import build_dataset
 

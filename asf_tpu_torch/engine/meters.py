@@ -17,7 +17,9 @@ host's resident set. The verb/noun meters keep ``verb``, ``noun`` and
 best when its action top-1 is above every earlier epoch's. With the state
 head the train meter (``with_state``) also keeps ``state_loss``, and the
 val meter each batch's ``state_metrics`` that the loop hands it, whose
-means over the batches its ``val_epoch`` record carries. The sliding-window meter comes with its slice.
+means over the batches its ``val_epoch`` record carries.
+``EPICTestMeterSlide`` (:540-617) scores sliding windows over untrimmed
+videos, each window's scores summed into its slot.
 
 The loops log an iteration's stats at a later flush, once its numbers are
 off the card, so they take the iteration's times (``iter_times()``) at its
@@ -232,40 +234,15 @@ class ValMeter(_BaseEpochMeter):
         return is_best, {"top1_acc": 100.0 - top1}
 
 
-class TestMeter:
-    """Multi-view ensembling of a single-task test set: the scores of clip
-    ``clip_id // num_clips``'s views are summed or maxed
-    (``DATA.ENSEMBLE_METHOD``), in the order they arrive, into float64 rows;
-    every view of a clip must carry the clip's label."""
+class _TestIterations:
+    """A test meter's iteration timers and its ``test_iter`` record every
+    ``log_period`` iterations."""
 
-    def __init__(self, num_audios: int, num_clips: int, num_cls: int, overall_iters: int,
-                 ensemble_method: str = "sum", log_period: int = 20):
-        if ensemble_method not in ("sum", "max"):
-            raise NotImplementedError(ensemble_method)
-        self.num_clips = num_clips
-        self.overall_iters = overall_iters
-        self.ensemble_method = ensemble_method
+    def __init__(self, log_period: int):
         self.log_period = max(1, int(log_period))
-        self.audio_preds = np.zeros((num_audios, num_cls), np.float64)
-        self.audio_labels = np.zeros((num_audios,), np.int64)
-        self.clip_count = np.zeros((num_audios,), np.int64)
         self.iter_timer = Timer()
         self.data_timer = Timer()
         self.stats = {}
-
-    def update_stats(self, preds, labels, clip_ids):
-        preds = np.asarray(preds)
-        labels = np.asarray(labels)
-        vid = np.asarray(clip_ids) // self.num_clips
-        seen = self.clip_count[vid] > 0
-        self.audio_labels[vid[~seen]] = labels[~seen]
-        if not (self.audio_labels[vid] == labels).all():
-            raise AssertionError("the views of a clip carry different labels")
-        if self.ensemble_method == "sum":
-            np.add.at(self.audio_preds, vid, preds)
-        else:
-            np.maximum.at(self.audio_preds, vid, preds)
-        np.add.at(self.clip_count, vid, 1)
 
     def iter_tic(self):
         self.iter_timer.reset()
@@ -287,6 +264,39 @@ class TestMeter:
         dt, dt_data = times or self.iter_times()
         log_json_stats({"_type": "test_iter", "cur_iter": f"{cur_iter + 1}",
                         "time_diff": dt, "dt_data": dt_data})
+
+
+class TestMeter(_TestIterations):
+    """Multi-view ensembling of a single-task test set: the scores of clip
+    ``clip_id // num_clips``'s views are summed or maxed
+    (``DATA.ENSEMBLE_METHOD``), in the order they arrive, into float64 rows;
+    every view of a clip must carry the clip's label."""
+
+    def __init__(self, num_audios: int, num_clips: int, num_cls: int, overall_iters: int,
+                 ensemble_method: str = "sum", log_period: int = 20):
+        if ensemble_method not in ("sum", "max"):
+            raise NotImplementedError(ensemble_method)
+        super().__init__(log_period)
+        self.num_clips = num_clips
+        self.overall_iters = overall_iters
+        self.ensemble_method = ensemble_method
+        self.audio_preds = np.zeros((num_audios, num_cls), np.float64)
+        self.audio_labels = np.zeros((num_audios,), np.int64)
+        self.clip_count = np.zeros((num_audios,), np.int64)
+
+    def update_stats(self, preds, labels, clip_ids):
+        preds = np.asarray(preds)
+        labels = np.asarray(labels)
+        vid = np.asarray(clip_ids) // self.num_clips
+        seen = self.clip_count[vid] > 0
+        self.audio_labels[vid[~seen]] = labels[~seen]
+        if not (self.audio_labels[vid] == labels).all():
+            raise AssertionError("the views of a clip carry different labels")
+        if self.ensemble_method == "sum":
+            np.add.at(self.audio_preds, vid, preds)
+        else:
+            np.maximum.at(self.audio_preds, vid, preds)
+        np.add.at(self.clip_count, vid, 1)
 
     def _warn_incomplete(self):
         if not np.all(self.clip_count == self.num_clips):
@@ -502,3 +512,59 @@ class EPICTestMeter(TestMeter):
         log_json_stats(self.stats)
         return ((self.verb_preds.copy(), self.noun_preds.copy()),
                 (self.verb_labels.copy(), self.noun_labels.copy()), self.metadata.copy())
+
+
+class EPICTestMeterSlide(_TestIterations):
+    """Sliding-window test meter: each window's verb and noun scores summed
+    into its slot (float64), its labels ((L,) a window: 4 in whole-video
+    mode, else 1) and ``narration_id`` kept. The ``test_final`` record
+    scores the windows seen and annotated (first label not -1) with the
+    slide metrics, each window alike (the loader scores a window once), and
+    carries ``num_windows_eval``."""
+
+    def __init__(self, num_windows: int, num_cls, per_action_instance: bool,
+                 log_period: int = 20):
+        super().__init__(log_period)
+        self.per_action_instance = per_action_instance
+        self.verb_preds = np.zeros((num_windows, num_cls[0]), np.float64)
+        self.noun_preds = np.zeros((num_windows, num_cls[1]), np.float64)
+        label_w = 1 if per_action_instance else 4
+        self.verb_labels = np.full((num_windows, label_w), -1, np.int64)
+        self.noun_labels = np.full((num_windows, label_w), -1, np.int64)
+        self.metadata = np.empty(num_windows, dtype=object)
+        self.seen = np.zeros((num_windows,), bool)
+
+    def update_stats(self, preds, labels, metadata, clip_ids):
+        """preds: (verb, noun) (B, C) scores; labels: (verb, noun), each (B,)
+        or (B, L); metadata: the batch's, with ``narration_id`` (or None)."""
+        cid = np.asarray(clip_ids)
+        verb_l, noun_l = np.asarray(labels[0]), np.asarray(labels[1])
+        if verb_l.ndim == 1:
+            verb_l, noun_l = verb_l[:, None], noun_l[:, None]
+        np.add.at(self.verb_preds, cid, np.asarray(preds[0]))
+        np.add.at(self.noun_preds, cid, np.asarray(preds[1]))
+        self.verb_labels[cid, : verb_l.shape[1]] = verb_l
+        self.noun_labels[cid, : noun_l.shape[1]] = noun_l
+        if metadata is not None and "narration_id" in metadata:
+            self.metadata[cid] = np.asarray(metadata["narration_id"], dtype=object)
+        self.seen[cid] = True
+
+    def finalize_metrics(self, ks=(1, 5)):
+        """Logs the ``test_final`` record; returns ((verb, noun) scores,
+        (verb, noun) labels, narration ids) of the windows scored."""
+        keep = self.seen & (self.verb_labels[:, 0] != -1)
+        vp, np_ = self.verb_preds[keep], self.noun_preds[keep]
+        vl, nl = self.verb_labels[keep], self.noun_labels[keep]
+        if self.per_action_instance:
+            vl, nl = vl[:, 0], nl[:, 0]
+        verb = metrics.topk_accuracies_slide(vp, vl, ks, self.per_action_instance)
+        noun = metrics.topk_accuracies_slide(np_, nl, ks, self.per_action_instance)
+        action = metrics.multitask_topk_accuracies_slide(
+            (vp, np_), (vl, nl), ks, self.per_action_instance)
+        self.stats = {"_type": "test_final", "num_windows_eval": int(keep.sum())}
+        for k, v, n, a in zip(ks, verb, noun, action):
+            self.stats[f"verb_top{k}_acc"] = f"{float(v):.2f}"
+            self.stats[f"noun_top{k}_acc"] = f"{float(n):.2f}"
+            self.stats[f"action_top{k}_acc"] = f"{float(a):.2f}"
+        log_json_stats(self.stats)
+        return (vp, np_), (vl, nl), self.metadata[keep].copy()

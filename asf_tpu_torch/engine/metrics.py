@@ -13,6 +13,11 @@ over the distinct scores (a run of tied scores is one threshold), and the
 AUC is the trapezoid over the ROC points of those thresholds, so a tied
 run counts as half right.
 
+The sliding-window metrics (``:103-159``: ``topks_correct_slide``,
+``topk_accuracies_slide`` and their multitask pair) are numpy copies: a
+window's (N, L) labels hold every action that overlaps it, any of which
+counts, with an optional weight a window.
+
 ``state_metrics`` (``:168-201``) scores the state head on the host, in
 numpy for the same reason: for each chain's first and last real window,
 the macro and micro F1, recall and precision over its P attributes
@@ -142,6 +147,60 @@ def get_map(preds, labels) -> float:
         return 0.0
     return float(np.mean([average_precision(labels[:, k], preds[:, k])
                           for k in range(labels.shape[1])]))
+
+
+# ---------------------------------------------------------------------------
+# Sliding-window (untrimmed video) test metrics (host, numpy)
+# ---------------------------------------------------------------------------
+
+def _slide_correct(top: np.ndarray, labels: np.ndarray, per_action_instance: bool) -> np.ndarray:
+    """(max_k, N) hits of the top-k class ids ``top``: against (N,) labels,
+    or against any column of (N, L) labels (-1 slots never hit)."""
+    labels = np.asarray(labels)
+    if per_action_instance:
+        return top == labels[None, :]
+    correct = np.zeros_like(top, dtype=bool)
+    for col in range(labels.shape[1]):
+        correct |= top == labels[:, col][None, :]
+    return correct
+
+
+def topks_correct_slide(preds, labels, ks, per_action_instance=True, weight=None):
+    """Weighted top-k hits of (N, C) window scores for each k, the weights
+    normalised to sum 1 (uniform when ``weight`` is None): against (N,)
+    labels with ``per_action_instance``, else against (N, L) labels, where a
+    window counts once for each of its label slots in its top-k (any
+    overlapping action counts)."""
+    preds = np.asarray(preds)
+    weight = (np.ones(preds.shape[0]) / preds.shape[0] if weight is None
+              else np.asarray(weight, np.float64) / np.sum(weight))
+    top = np.argsort(-preds, axis=1)[:, : max(ks)].T  # (max_k, N)
+    correct = _slide_correct(top, labels, per_action_instance)
+    return [float((weight * correct[:k, :]).sum()) for k in ks]
+
+
+def topk_accuracies_slide(preds, labels, ks, per_action_instance=True, weight=None):
+    return [x * 100.0 for x in topks_correct_slide(preds, labels, ks, per_action_instance, weight)]
+
+
+def multitask_topks_correct_slide(preds, labels, ks=(1,), per_action_instance=True, weight=None):
+    """Weighted count of windows whose hits over the tasks' top-k reach the
+    number of tasks, for each k."""
+    weight = (np.ones(np.asarray(preds[0]).shape[0]) if weight is None
+              else np.asarray(weight, np.float64))
+    weight = weight / weight.sum()
+    max_k = int(max(ks))
+    all_correct = np.zeros((max_k, np.asarray(labels[0]).shape[0]), dtype=np.int32)
+    for output, label in zip(preds, labels):
+        top = np.argsort(-np.asarray(output), axis=1)[:, :max_k].T
+        all_correct += _slide_correct(top, label, per_action_instance).astype(np.int32)
+    task_count = len(preds)
+    return [float((weight * (all_correct[:k].sum(axis=0) >= task_count)).sum()) for k in ks]
+
+
+def multitask_topk_accuracies_slide(preds, labels, ks, per_action_instance=True, weight=None):
+    return [x * 100.0
+            for x in multitask_topks_correct_slide(preds, labels, ks, per_action_instance, weight)]
 
 
 STATE_METRICS = ("f1_macro", "f1_micro", "recall_macro", "recall_micro", "precision_macro",

@@ -3,7 +3,8 @@
 Counterpart of ``asf_tpu/engine/steps.py:80-128``: int16 samples are scaled
 by 1/32768, the log-mel front end runs with ``out_frames = NUM_FRAMES``, in
 training SpecAugment runs on the edge-padded float32 spectrogram
-(``GPU.SPEC_AUGMENT``), and the slow pathway gathers ``slow_indices`` frames.
+(``GPU.SPEC_AUGMENT``), and the slow pathway gathers ``slow_indices`` frames
+(a single-pathway Slow-only or Fast-only model takes every frame).
 Outputs are NCHW ``(B, 1, T, F)``, PyTorch's layout; the JAX package's are
 NHWC ``(B, T, F, 1)``. A batch of window chains, waveform ``(B, N, S)`` and
 ``n_valid`` ``(B, N)``, is flattened to ``B * N`` rows: one front-end launch
@@ -26,13 +27,17 @@ from ..dsp.specaugment import spec_augment
 
 
 def pack_pathways(cfg, spec: torch.Tensor) -> list[torch.Tensor]:
-    """(B, T, F) spectrogram -> [slow, fast] as (B, 1, T', F).
-
-    Only the two-pathway SlowFast is ported; single-pathway models come with
-    the slice that ports ``asf_tpu``'s ``ResNet``.
-    """
-    if cfg.MODEL.ARCH not in cfg.MODEL.MULTI_PATHWAY_ARCH:
-        raise NotImplementedError(f"model arch {cfg.MODEL.ARCH} is not ported yet")
+    """(B, T, F) spectrogram -> the pathways as (B, 1, T', F): [spec] for a
+    single-pathway arch (``MODEL.SINGLE_PATHWAY_ARCH``: every frame, no
+    subsampling), [slow, fast] for SlowFast; another arch raises, as
+    ``asf_tpu/dsp/pathways.py:65-68`` does."""
+    arch = cfg.MODEL.ARCH
+    if arch in cfg.MODEL.SINGLE_PATHWAY_ARCH:
+        return [spec.unsqueeze(1)]
+    if arch not in cfg.MODEL.MULTI_PATHWAY_ARCH:
+        raise NotImplementedError(
+            f"Model arch {arch} is not in "
+            f"{list(cfg.MODEL.SINGLE_PATHWAY_ARCH) + list(cfg.MODEL.MULTI_PATHWAY_ARCH)}")
     idx = torch.from_numpy(slow_indices(spec.shape[1], cfg.SLOWFAST.ALPHA))
     return [x.unsqueeze(1) for x in (spec.index_select(1, idx.to(spec.device)), spec)]
 

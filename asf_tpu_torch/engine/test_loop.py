@@ -12,7 +12,11 @@ card), ensemble each clip's ``TEST.NUM_ENSEMBLE_VIEWS`` views in a
 ``OUTPUT_DIR/scores/TEST.SAVE_RESULTS_PATH`` and log the top-k accuracies
 (and, for VGG-Sound, ``vggsound_stats``). A model with the state head is
 tested on its verb and noun scores; its state output is left aside, as in
-the JAX package (``:51-60``).
+the JAX package (``:51-60``). Sliding-window testing (``TEST.SLIDE.ENABLE``
+or a ``*Slide`` test dataset; ``:228-234``) scores each window of
+``EpicKitchensSlide`` once in an ``EPICTestMeterSlide``, whose labels are
+(windows, 4) or (windows,) tables, and pickles the windows it scored in the
+verb/noun schema.
 
 The loop does not wait for the card a batch: each batch's probabilities,
 labels and clip ids are queued as one copy into pinned host memory with an
@@ -20,7 +24,7 @@ event, and the meter takes them once that event has completed. The ragged
 last batch runs with its real rows. The JAX package's padding to a static
 batch (``pad_batch_to``), its K-step ``multi_eval`` and its device store
 (``resolve_offsets``) exist for XLA and the TPU's host link and are not
-ported; the sliding-window meter comes with its slice.
+ported.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from ..models import build_model
 from ..utils.logging import get_logger, setup_logging
 from ..utils.torch_setup import disable_tf32, resolve_device
 from . import metrics
-from .meters import EPICTestMeter, TestMeter
+from .meters import EPICTestMeter, EPICTestMeterSlide, TestMeter
 from .steps import is_multitask, make_eval_step
 
 logger = get_logger(__name__)
@@ -50,7 +54,7 @@ def perform_test(test_loader, model, eval_step, test_meter, device):
     ``finalize_metrics()``: (ensembled scores, labels), and for verb/noun
     the (verb, noun) pairs of both and the narration ids."""
     cuda = torch.device(device).type == "cuda"
-    multitask = isinstance(test_meter, EPICTestMeter)
+    multitask = isinstance(test_meter, (EPICTestMeter, EPICTestMeterSlide))
     # (iteration, host times, (probs..., labels..., clip ids) on the host, metadata, event)
     fetches = []
 
@@ -117,12 +121,11 @@ def test(cfg, device=None):
     ((verb, noun) scores, (verb, noun) labels, narration ids (clips,)).
 
     Runs on the current CUDA device unless ``device="cpu"``; raises when
-    CUDA is absent and no device was given. Raises ``NotImplementedError``
-    for ``TEST.SLIDE.ENABLE`` and ``NUM_SHARDS > 1``, which come with later
-    slices.
+    CUDA is absent and no device was given. Sliding-window testing returns
+    the windows scored: ((verb, noun) scores, (verb, noun) labels, narration
+    ids). Raises ``NotImplementedError`` for ``NUM_SHARDS > 1``, which comes
+    with a later slice.
     """
-    if cfg.TEST.SLIDE.ENABLE or cfg.TEST.DATASET.lower().endswith("slide"):
-        raise NotImplementedError("sliding-window testing comes with the EPIC slice")
     if cfg.NUM_SHARDS > 1 or cfg.NUM_GPUS > 1:
         raise NotImplementedError(f"NUM_SHARDS = {cfg.NUM_SHARDS}, NUM_GPUS = {cfg.NUM_GPUS}: "
                                   "test(cfg) runs on one device")
@@ -141,14 +144,22 @@ def test(cfg, device=None):
     try:
         dataset = test_loader.dataset
         num_clips = dataset._num_clips
-        meter = (EPICTestMeter if multitask else TestMeter)(
-            num_audios=len(dataset) // num_clips,
-            num_clips=num_clips,
-            num_cls=cfg.MODEL.NUM_CLASSES if multitask else cfg.MODEL.NUM_CLASSES[0],
-            overall_iters=len(test_loader),
-            ensemble_method=cfg.DATA.ENSEMBLE_METHOD,
-            log_period=cfg.LOG_PERIOD,
-        )
+        if cfg.TEST.SLIDE.ENABLE or cfg.TEST.DATASET.lower().endswith("slide"):
+            meter = EPICTestMeterSlide(
+                num_windows=len(dataset),
+                num_cls=cfg.MODEL.NUM_CLASSES,
+                per_action_instance=cfg.TEST.SLIDE.PER_ACTION_INSTANCE,
+                log_period=cfg.LOG_PERIOD,
+            )
+        else:
+            meter = (EPICTestMeter if multitask else TestMeter)(
+                num_audios=len(dataset) // num_clips,
+                num_clips=num_clips,
+                num_cls=cfg.MODEL.NUM_CLASSES if multitask else cfg.MODEL.NUM_CLASSES[0],
+                overall_iters=len(test_loader),
+                ensemble_method=cfg.DATA.ENSEMBLE_METHOD,
+                log_period=cfg.LOG_PERIOD,
+            )
         results = perform_test(test_loader, model, eval_step, meter, device)
     finally:
         test_loader.close()

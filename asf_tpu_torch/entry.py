@@ -1,6 +1,7 @@
 """Entry points of the port: the flagship eval forward and train step, and
-the configurations of the flagship, of EPIC-KITCHENS verb/noun, of the
-EPIC-KITCHENS GRU sequence model and of their state heads.
+the configurations of the flagship, of the single-pathway Slow-only and
+Fast-only ResNet, of EPIC-KITCHENS verb/noun and its sliding-window
+testing, of the EPIC-KITCHENS GRU sequence model and of their state heads.
 
 ``entry`` is the counterpart of ``__graft_entry__.py:17-65``: the VGG-Sound
 ``AudioSlowFast`` (SlowFast-R50, 309 classes, bf16 trunk) behind the log-mel
@@ -32,6 +33,36 @@ def flagship_cfg():
     cfg.RESNET.FREQUENCY_STRIDES = [[1, 1], [2, 2], [2, 2], [2, 2]]
     cfg.RESNET.FREQUENCY_DILATIONS = [[1, 1], [1, 1], [1, 1], [1, 1]]
     cfg.GPU.COMPUTE_DTYPE = "bfloat16"
+    return cfg
+
+
+# Classes of the released checkpoints' heads: EPIC-KITCHENS-100 verbs and
+# nouns, VGG-Sound's one head.
+RELEASE_CLASSES = {"epic": [97, 300], "vgg": [309]}
+
+
+def resnet_cfg(arch: str = "slow", dataset: str = "vgg"):
+    """The single-pathway ResNet of the released Slow-only and Fast-only
+    checkpoints, the port's copy of ``scripts/verify_release_ckpt.py:50-76``
+    (``build_cfg``): ``MODEL_NAME`` "ResNet" with ``MODEL.ARCH`` ``arch``
+    ("slow" or "fast"), R50 (``WIDTH_PER_GROUP`` 64) with the flagship's
+    stage lists, the classes of ``dataset`` ("vgg": 309; "epic": 97 verbs
+    and 300 nouns), the default geometry (256 frames, 128 mels), and the
+    bf16 trunk. ``build_cfg`` computes in float32 to check a released
+    checkpoint; ``entry``'s float32 front end serves that check.
+    ``MODEL.ONLY_ACTION_RECOGNITION`` is on: the ResNet has no state head,
+    and the loss of a verb/noun config with it off would ask for state
+    labels. The data keys (``VGGSOUND.*``, or ``TRAIN.DATASET`` and
+    ``EPICKITCHENS.*`` as in ``epic_cfg``) are the caller's.
+    """
+    if arch not in ("slow", "fast") or dataset not in RELEASE_CLASSES:
+        raise ValueError(f"resnet_cfg takes arch 'slow' or 'fast' and dataset "
+                         f"{sorted(RELEASE_CLASSES)}, not {arch!r}, {dataset!r}")
+    cfg = flagship_cfg()
+    cfg.MODEL.MODEL_NAME = "ResNet"
+    cfg.MODEL.ARCH = arch
+    cfg.MODEL.NUM_CLASSES = list(RELEASE_CLASSES[dataset])
+    cfg.MODEL.ONLY_ACTION_RECOGNITION = True
     return cfg
 
 
@@ -76,6 +107,37 @@ def epic_cfg():
     cfg.DATA_LOADER.NUM_WORKERS = 8
     cfg.GPU.DSP_PRECISION = "BFLOAT16"
     cfg.RNG_SEED = 0
+    return cfg
+
+
+# TEST.SLIDE of the repo's slide YAMLs (models/asf/config/slide/): WIN_SIZE,
+# HOP_SIZE, INSIDE_ACTION_BOUNDS, PER_ACTION_INSTANCE.
+SLIDE_MODES = {
+    "whole_video": (1.0, 0.5, False, False),  # asf-original-whole-video-1s.yaml
+    "action_bounds": (2.0, 0.5, True, False),  # asf-original-action-bounds.yaml
+    "per_instance": (2.0, 0.5, True, True),  # asf-original-per-instance.yaml
+}
+
+
+def epic_slide_cfg(mode: str = "whole_video"):
+    """Sliding-window testing over untrimmed EPIC-KITCHENS-100 videos:
+    ``epic_cfg()`` testing ``EpicKitchensSlide`` at B = 128 in one view with
+    the ``TEST.SLIDE`` values of the repo's YAML of ``mode`` (``SLIDE_MODES``:
+    windows of 1 s every 0.5 s over each whole video, windows of 2 s every
+    0.5 s inside each action, or one window an action), ``TRAIN.ENABLE``
+    off: the configuration only tests. The trunk is ``epic_cfg``'s, so that
+    a checkpoint of ``epic_cfg()`` loads whole. The data paths
+    (``EPICKITCHENS.*``, among them ``VIDEO_DURS`` for the whole-video mode)
+    and ``TEST.CHECKPOINT_FILE_PATH`` are the caller's.
+    """
+    cfg = epic_cfg()
+    cfg.TRAIN.ENABLE = False
+    cfg.TEST.DATASET = "EpicKitchensSlide"
+    cfg.TEST.BATCH_SIZE = 128
+    cfg.TEST.NUM_ENSEMBLE_VIEWS = 1
+    s = cfg.TEST.SLIDE
+    s.ENABLE = True
+    s.WIN_SIZE, s.HOP_SIZE, s.INSIDE_ACTION_BOUNDS, s.PER_ACTION_INSTANCE = SLIDE_MODES[mode]
     return cfg
 
 
@@ -170,8 +232,8 @@ def clip_samples(cfg) -> int:
 def entry(batch: int = 8, dsp_precision: str = "HIGHEST", device=None, cfg=None):
     """Returns ``(fn, (model, wave, n_valid))`` with ``fn(model, wave, n_valid) -> probs``.
 
-    ``model`` is the ``AudioSlowFast`` of ``cfg`` (default: ``flagship_cfg()``)
-    in eval mode, with weights drawn from ``torch.Generator().manual_seed(0)``
+    ``model`` is the model of ``cfg`` (default: ``flagship_cfg()``, the
+    ``AudioSlowFast``) in eval mode, with weights drawn from ``torch.Generator().manual_seed(0)``
     (other weights: ``model.load_state_dict``);
     ``wave`` is a (batch, clip_samples) float32 example and ``n_valid`` its
     (batch,) record lengths. ``fn`` also takes int16 waveforms; its input
@@ -202,8 +264,8 @@ def entry(batch: int = 8, dsp_precision: str = "HIGHEST", device=None, cfg=None)
 def train_entry(batch: int = 64, dsp_precision: str = "BFLOAT16", device=None, cfg=None):
     """Returns ``(step, (state, example))`` with ``step(state, example, lr) -> (parts, stats)``.
 
-    ``state`` holds the ``AudioSlowFast`` of ``cfg`` (default:
-    ``flagship_cfg()``, ``TRAIN.BATCH_SIZE = batch``) with weights drawn from
+    ``state`` holds the model of ``cfg`` (default: ``flagship_cfg()``, the
+    ``AudioSlowFast``; ``TRAIN.BATCH_SIZE = batch``) with weights drawn from
     ``torch.Generator().manual_seed(0)``, its optimizer (nesterov SGD by
     default) and a SpecAugment generator seeded with 0. ``example`` is a
     seeded batch: ``waveform`` (batch, clip_samples) float32, ``n_valid`` and

@@ -1,15 +1,18 @@
 """Model builders and registry.
 
-Counterparts of ``asf_tpu/models/builders.py:29-289, 366-395``: the
+Counterparts of ``asf_tpu/models/builders.py:29-395``: the
 two-pathway SlowFast trunk with its lateral fusions, ``AudioSlowFast``,
 ``AudioSlowFastGRU`` (the same trunk over every window of a chain, then
-the GRU head), ``MODEL_REGISTRY`` and ``build_model`` (with the upstream
-"SlowFast" alias). Submodule names follow the JAX tree (``s1``,
-``s1_fuse``, ..., ``s5``, ``head``). With ``MODEL.ONLY_ACTION_RECOGNITION``
-off both models carry the state head: ``build_model`` appends the number
-of PDDL attributes (the rows of the ``MODEL.PDDL_ATTRIBUTES`` csv) to a
-two-class ``NUM_CLASSES``, and a verb/noun config that gets no third class
-raises.
+the GRU head), the single-pathway Slow-only or Fast-only ``ResNet``
+(``MODEL.ARCH`` "slow" or "fast"), ``MODEL_REGISTRY`` and ``build_model``
+(with the upstream "SlowFast" alias). Submodule names follow the JAX tree
+(``s1``, ``s1_fuse``, ..., ``s5``, ``head``). With
+``MODEL.ONLY_ACTION_RECOGNITION`` off the two SlowFast models carry the
+state head: ``build_model`` appends the number of PDDL attributes (the rows
+of the ``MODEL.PDDL_ATTRIBUTES`` csv) to a two-class ``NUM_CLASSES``, and a
+verb/noun config that gets no third class raises. ``ResNet`` has no state
+head; a verb/noun ``ResNet`` config builds its two projections whatever
+``ONLY_ACTION_RECOGNITION`` says, as in the JAX package.
 
 Initialisation follows the JAX package from an explicit ``torch.Generator``:
 convs draw Caffe2 MSRA fill (normal, std sqrt(2 / fan_out), fan_out =
@@ -39,11 +42,15 @@ from .norm import make_norm
 # for tests.
 _MODEL_STAGE_DEPTH = {26: (1, 1, 1, 1), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
-# SlowFast temporal kernel basis per stage and pathway.
-_TEMPORAL_KERNEL_BASIS = [[[1], [5]], [[1], [3]], [[1], [3]], [[3], [3]], [[3], [3]]]
+# Temporal kernel basis per arch, stage and pathway.
+_TEMPORAL_KERNEL_BASIS = {
+    "slow": [[[1]], [[1]], [[1]], [[3]], [[3]]],
+    "fast": [[[5]], [[3]], [[3]], [[3]], [[3]]],
+    "slowfast": [[[1], [5]], [[1], [3]], [[1], [3]], [[3], [3]], [[3], [3]]],
+}
 
-# pool1 windows per pathway (identity at the audio geometry).
-_POOL1 = [[1, 1], [1, 1]]
+# pool1 windows per arch and pathway (identity at the audio geometry).
+_POOL1 = {"slow": [[1, 1]], "fast": [[1, 1]], "slowfast": [[1, 1], [1, 1]]}
 
 MODEL_REGISTRY = {}
 
@@ -60,14 +67,16 @@ def compute_dtype(cfg) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.GPU.COMPUTE_DTYPE]
 
 
-def head_pool_sizes(cfg, pool_size):
-    """Head average-pool windows of the two pathways, from the input geometry."""
+def head_pool_sizes(cfg, pool_size, pathways):
+    """Head average-pool windows of the ``pathways`` (1 or 2), from the input geometry."""
     T, F_ = cfg.AUDIO_DATA.NUM_FRAMES, cfg.AUDIO_DATA.NUM_FREQUENCIES
     alpha = cfg.SLOWFAST.ALPHA
-    return [
-        [T // alpha // 4 // pool_size[0][0], F_ // 32 // pool_size[0][1]],
-        [T // 4 // pool_size[1][0], F_ // 32 // pool_size[1][1]],
-    ]
+    if pathways == 2:
+        return [
+            [T // alpha // 4 // pool_size[0][0], F_ // 32 // pool_size[0][1]],
+            [T // 4 // pool_size[1][0], F_ // 32 // pool_size[1][1]],
+        ]
+    return [[T // 4 // pool_size[0][0], F_ // 32 // pool_size[0][1]]]
 
 
 def _num_classes(cfg):
@@ -89,7 +98,7 @@ class _SlowFastTrunk(nn.Module):
         fuse_k = cfg.SLOWFAST.FUSION_KERNEL_SZ
         alpha = cfg.SLOWFAST.ALPHA
         out_dim_ratio = beta // ratio
-        tk = _TEMPORAL_KERNEL_BASIS
+        tk = _TEMPORAL_KERNEL_BASIS["slowfast"]
         norm = make_norm(cfg)
         common = dict(
             trans_func_name=cfg.RESNET.TRANS_FUNC,
@@ -133,7 +142,7 @@ class _SlowFastTrunk(nn.Module):
                 self.add_module(
                     f"s{si + 2}_fuse", FuseFastToSlow(do // beta, ratio, fuse_k, alpha, norm, dtype)
                 )
-        self.pool1 = [tuple(p) for p in _POOL1]
+        self.pool1 = [tuple(p) for p in _POOL1["slowfast"]]
 
     def trunk(self, xs):
         xs = self.s1_fuse(self.s1(xs))
@@ -158,7 +167,7 @@ class AudioSlowFast(_SlowFastTrunk):
         self.head = ResNetBasicHead(
             dim_in=_head_dims(cfg),
             num_classes=_num_classes(cfg),
-            pool_size=head_pool_sizes(cfg, _POOL1),
+            pool_size=head_pool_sizes(cfg, _POOL1["slowfast"], 2),
             dropout_rate=cfg.MODEL.DROPOUT_RATE,
             act_func=cfg.MODEL.HEAD_ACT,
             dtype=dtype,
@@ -180,7 +189,7 @@ class AudioSlowFastGRU(_SlowFastTrunk):
         self.head = GRUResNetBasicHead(
             dim_in=_head_dims(cfg),
             num_classes=_num_classes(cfg),
-            pool_size=head_pool_sizes(cfg, _POOL1),
+            pool_size=head_pool_sizes(cfg, _POOL1["slowfast"], 2),
             dropout_rate=cfg.MODEL.DROPOUT_RATE,
             act_func=cfg.MODEL.HEAD_ACT,
             gru_hidden_size=cfg.MODEL.GRU_HIDDEN_SIZE,
@@ -195,6 +204,69 @@ class AudioSlowFastGRU(_SlowFastTrunk):
         chains = tuple(xs[0].shape[:2])
         feats = self.trunk([x.reshape(-1, *x.shape[2:]) for x in xs])
         return self.head(feats, lengths, chains, host_lengths, noun_embedding)
+
+
+@register_model("ResNet")
+class ResNet(nn.Module):
+    """Single-pathway Slow-only or Fast-only ResNet (``MODEL.ARCH`` "slow"
+    or "fast"): [x] (B, 1, T', F) -> head. The stem ``s1.pathway0_stem``,
+    stages ``s2``..``s5`` of one pathway each (the first entry of each
+    pathway list of ``RESNET``), no lateral fusion, and a one-pathway head
+    of ``WIDTH_PER_GROUP * 32`` inputs."""
+
+    def __init__(self, cfg, dtype=torch.float32):
+        super().__init__()
+        arch = cfg.MODEL.ARCH
+        if arch not in ("slow", "fast"):
+            raise ValueError(f"ResNet takes MODEL.ARCH 'slow' or 'fast', not {arch!r}")
+        tk = _TEMPORAL_KERNEL_BASIS[arch]
+        d2, d3, d4, d5 = _MODEL_STAGE_DEPTH[cfg.RESNET.DEPTH]
+        w = cfg.RESNET.WIDTH_PER_GROUP
+        ng = cfg.RESNET.NUM_GROUPS
+        dim_inner = ng * w
+        norm = make_norm(cfg)
+        self.s1 = AudioModelStem(
+            dim_in=cfg.DATA.INPUT_CHANNEL_NUM,  # the first pathway's
+            dim_out=[w],
+            kernel=[tk[0][0] + [7]],
+            stride=[[2, 2]],
+            padding=[[tk[0][0][0] // 2, 3]],
+            norm=norm,
+            dtype=dtype,
+        )
+        widths = [(w, w * 4, dim_inner, d2), (w * 4, w * 8, dim_inner * 2, d3),
+                  (w * 8, w * 16, dim_inner * 4, d4), (w * 16, w * 32, dim_inner * 8, d5)]
+        for si, (di, do, dn, nb) in enumerate(widths):
+            self.add_module(f"s{si + 2}", ResStage(
+                dim_in=[di],
+                dim_out=[do],
+                dim_inner=[dn],
+                temp_kernel_sizes=tk[si + 1],
+                stride=cfg.RESNET.FREQUENCY_STRIDES[si],
+                num_blocks=[nb],
+                num_groups=[ng],
+                num_block_temp_kernel=cfg.RESNET.NUM_BLOCK_TEMP_KERNEL[si],
+                dilation=cfg.RESNET.FREQUENCY_DILATIONS[si],
+                trans_func_name=cfg.RESNET.TRANS_FUNC,
+                stride_1x1=cfg.RESNET.STRIDE_1X1,
+                norm=norm,
+                dtype=dtype,
+                zero_init_final_bn=cfg.RESNET.ZERO_INIT_FINAL_BN,
+            ))
+        self.pool1 = tuple(_POOL1[arch][0])
+        self.head = ResNetBasicHead(
+            dim_in=[w * 32],
+            num_classes=_num_classes(cfg),
+            pool_size=head_pool_sizes(cfg, _POOL1[arch], 1),
+            dropout_rate=cfg.MODEL.DROPOUT_RATE,
+            act_func=cfg.MODEL.HEAD_ACT,
+            dtype=dtype,
+        )
+
+    def forward(self, xs):
+        xs = self.s2(self.s1(xs))
+        xs = [F.max_pool2d(x, self.pool1, stride=self.pool1) for x in xs]
+        return self.head(self.s5(self.s4(self.s3(xs))))
 
 
 @torch.no_grad()

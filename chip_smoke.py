@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Ten phases, each of which raises on a
+Run from the root of a checkout. Eleven phases, each of which raises on a
 failed check (the script then exits non-zero and prints no result):
 
 1. Device and build: needs a CUDA device; prints the card's name and power
@@ -21,7 +21,8 @@ failed check (the script then exits non-zero and prints no result):
    EPIC-KITCHENS geometry (1.999 s clips, 47,975 samples: 400 frames, three
    128-frame tiles and a 16-frame tail) for ``logmel_bf16`` at B = 32 and
    at B = 16, its train and ragged val batches, and at 320 rows, the GRU's
-   16 chains of 20 windows. Times: warm,
+   16 chains of 20 windows, and at B = 120, the last batch of the
+   whole-video sliding windows. Times: warm,
    CUDA events around a run of back-to-back launches over their count
    (median of 5 runs); cold, single launches each after a 512 MB write that
    evicts the 50 MB L2 (the write outside the timed window). The bound: the
@@ -153,7 +154,37 @@ failed check (the script then exits non-zero and prints no result):
    its peak memory and profiled. Each model's ``test(cfg)`` (its few
    batches read in process) pickles verb and noun rows that sum to their
    views, and ``run_net`` gives them within ``CLI_TOL``.
-10. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
+10. The single-pathway ResNet and sliding-window testing. The Slow-only and
+   the Fast-only ResNet (``entry.resnet_cfg``: R50 at ``WIDTH_PER_GROUP``
+   64, 309 classes, the bf16 trunk, weights from a seed; all 256 frames in
+   one pathway), each: phase 3's eval gates (2 batches of 8 through the
+   float32 front end, 2 of 128 through the bf16 one, the float32 copy's gate
+   and its control), phase 4's train step at B = 64 (5 steps, the plain
+   front end's loss, ms per step and clips/s) with its card, wall and
+   queueing times, one step under ``torch.profiler`` (busy ms, idle share,
+   the groups of kernels) and the peak memory; ``train(cfg)`` of one epoch
+   on phase 5's set (7 launches: 3 train, 2 precise BN, 2 val; the loader
+   in this process), then ``test(cfg)`` of phase 6's set from its
+   checkpoint (10 views, 5 launches, every clip with its views, top-k from
+   the pickle); the Fast-only one also through ``run_net`` within
+   ``CLI_TOL``. Then sliding-window ``test(cfg)`` (``entry.epic_slide_cfg``,
+   B = 128 windows of 400 frames, one view) over phase 7's videos from
+   phase 7's checkpoint, with a video-durations csv written for them: the
+   whole-video mode (windows of 1 s every 0.5 s: 8 x 239 = 1,912 windows,
+   15 batches, the last of 120; the loader's 8 workers off the card), then
+   the action-bounds and per-instance modes on phase 7's 32 test rows. In
+   each mode the windows, their samples and their labels (4 a whole-video
+   window, the first repeated in the unused slots) equal a plain
+   reference's (``slide_windows``), ``logmel_bf16`` launches once a batch,
+   the pickle holds the annotated windows' verb (97) and noun (300) rows,
+   each summing to 1, with their labels, and the meter's top-k follow from
+   it by the slide metrics; whole-video windows carry their video's row
+   number as ``narration_id``. ``run_net --cfg
+   models/asf/config/slide/asf-original-whole-video-1s.yaml`` (the data
+   paths, the checkpoint, ``TRAIN.ENABLE False`` and phase 7's trunk as
+   overrides) must give the in-process scores within ``CLI_TOL``. Prints
+   ms per test iteration, windows/s and the first batch's wait.
+11. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
    both above the card's float32 CUDA-core peak at their main-path shapes
    (``logmel_bf16`` flagship at B = 64 and 128, ``logmel_bf16_wide`` at
    B = 64); no ``HGMMA`` and no ``HMMA`` in the SASS of ``logmel_f32``'s
@@ -161,7 +192,7 @@ failed check (the script then exits non-zero and prints no result):
    slices, so that a run against an older tree of the kernels (a
    parent-versus-change comparison) still prints all its times before it
    fails.
-11. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+12. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -212,12 +243,13 @@ FLUSH_BYTES = 512 * 2**20  # written before each cold launch: ten times the L2
 # at 8, bf16 at 128; train: bf16 at 64, flagship and wide; train(cfg): bf16
 # at 64 and at 32, its ragged last val batch; EPIC: bf16 at 32 and at 16,
 # its ragged last val batch; the GRU: bf16 at 320 rows, 16 chains of 20
-# windows; the single-clip state head: bf16 at 128), and the 2048-tap
-# supports of logmel_f32 and logmel_bf16 at 8.
+# windows; the single-clip state head and the sliding windows: bf16 at 128,
+# and the last whole-video slide batch of 120), and the 2048-tap supports of
+# logmel_f32 and logmel_bf16 at 8.
 KERNEL_CASES = [
     ("logmel_f32", "HIGHEST", "flagship", (8, 128)),
     ("logmel_bf16", "BFLOAT16", "flagship", (8, 32, 64, 128)),
-    ("logmel_bf16", "BFLOAT16", "epic", (16, 32, 128, 320)),
+    ("logmel_bf16", "BFLOAT16", "epic", (16, 32, 120, 128, 320)),
     ("logmel_f32", "HIGHEST", "wide", (8,)),
     ("logmel_bf16", "BFLOAT16", "wide", (8,)),
     ("logmel_bf16_wide", "BFLOAT16", "wide", (8, 64)),
@@ -276,6 +308,11 @@ GRU_TRAIN_BUCKETS = (20, 1, 2, 4, 8, 16, 20, 16, 8, 4, 2, 1)
 GRU_VAL_BUCKETS = (20, 8, 4)
 GRU_TEST_BUCKETS = (16, 20)
 GRU_RAGGED = 8  # chains in the last val and test batches
+# Phase 10's sliding windows over phase 7's videos: the csv of their
+# durations (EPICKITCHENS.VIDEO_DURS), and the annotations a whole-video
+# window keeps.
+SLIDE_DURATIONS = "EPIC_100_video_info.csv"
+SLIDE_OVERLAP = 4
 
 
 def check(ok: bool, msg: str) -> None:
@@ -548,7 +585,7 @@ def f32_branches(tag: str, card: str, args: tuple, geo: dict, got: torch.Tensor,
 
 
 def check_instructions(card: str, sass: dict, kernels: dict) -> None:
-    """Phase 9: both bf16 kernels hold HGMMA and beat the float32 CUDA-core
+    """Phase 11: both bf16 kernels hold HGMMA and beat the float32 CUDA-core
     peak at their main-path shapes; logmel_f32's kernels hold no tensor-core
     instruction."""
     n_fns, hgmma, hmma = sass["logmel_f32"]
@@ -563,17 +600,25 @@ def check_instructions(card: str, sass: dict, kernels: dict) -> None:
               f"{tflops:.2f} TFLOP/s, not above the float32 CUDA-core peak {f32_peak:.0f}")
 
 
-def phase_slice(card: str) -> tuple[dict, dict]:
+def phase_slice(card: str, cfg=None, tag: str = "slice", n8: int = 4,
+                n128: int = 3) -> tuple[dict, dict]:
+    """Phase 3 (``cfg`` None: the flagship SlowFast-R50), and the eval gates
+    of phase 10 (a ResNet's ``cfg``): ``n8`` requests of 8 clips through the
+    float32 front end and ``n128`` of 128 through the bf16 one, checked and
+    gated; returns the launch counts and the times at B = 8 and 128."""
     from asf_tpu_torch.dsp.logmel import edge_pad
     from asf_tpu_torch.engine.pipeline import pack_pathways
     from asf_tpu_torch.entry import entry
     from asf_tpu_torch.ops import logmel as ops
 
     t0 = time.perf_counter()
-    serve8, (model8, _, _) = entry(batch=8, dsp_precision="HIGHEST")
-    serve128, (model128, _, _) = entry(batch=128, dsp_precision="BFLOAT16")
+    serve8, (model8, _, _) = entry(batch=8, dsp_precision="HIGHEST", cfg=cfg)
+    serve128, (model128, _, _) = entry(batch=128, dsp_precision="BFLOAT16", cfg=cfg)
     torch.cuda.synchronize()
-    print(f"[slice] two SlowFast-R50 models built in {time.perf_counter() - t0:.1f} s "
+    mcfg = serve8.pipeline.cfg
+    model_name = f"{mcfg.MODEL.MODEL_NAME} ({mcfg.MODEL.ARCH}, R{mcfg.RESNET.DEPTH})"
+    n_classes = mcfg.MODEL.NUM_CLASSES[0]
+    print(f"[{tag}] two {model_name} models built in {time.perf_counter() - t0:.1f} s "
           f"({sum(p.numel() for p in model8.parameters()) / 1e6:.2f} M parameters)", flush=True)
 
     s = serve8.pipeline.params.clip_samples
@@ -587,20 +632,21 @@ def phase_slice(card: str) -> tuple[dict, dict]:
         wave = (wave * 32768).astype(np.int16) if int16 else wave.astype(np.float32)
         return torch.from_numpy(wave).cuda(), torch.from_numpy(n_valid).cuda()
 
-    requests = [(serve8, model8, request(8, int16=i == 3)) for i in range(4)]
-    requests += [(serve128, model128, request(128, int16=i == 2)) for i in range(3)]
+    requests = [(serve8, model8, request(8, int16=i == n8 - 1)) for i in range(n8)]
+    requests += [(serve128, model128, request(128, int16=i == n128 - 1)) for i in range(n128)]
     torch.cuda.synchronize()
 
     zero_launches()
     outputs = [serve(model, *req) for serve, model, req in requests]
     torch.cuda.synchronize()
     launches = read_launches()
-    print(f"[slice] launches on the main path: {launches}", flush=True)
-    check(launches == {"logmel_f32": 4, "logmel_bf16": 3, "logmel_bf16_wide": 0},
-          f"expected one launch per batch (4 float32, 3 bf16), got {launches}")
+    print(f"[{tag}] launches on the main path: {launches}", flush=True)
+    check(launches == {"logmel_f32": n8, "logmel_bf16": n128, "logmel_bf16_wide": 0},
+          f"[{tag}] expected one launch per batch ({n8} float32, {n128} bf16), got {launches}")
 
     for (serve, _, (wave, _)), probs in zip(requests, outputs):
-        check(probs.shape == (wave.shape[0], 309), f"probabilities of shape {tuple(probs.shape)}")
+        check(probs.shape == (wave.shape[0], n_classes),
+              f"probabilities of shape {tuple(probs.shape)}")
         check(bool(torch.isfinite(probs).all()), "non-finite probabilities")
         sums = probs.sum(dim=1)
         check(bool(((sums - 1).abs() <= 1e-3).all()), f"rows sum to {sums.min()}..{sums.max()}")
@@ -631,33 +677,36 @@ def phase_slice(card: str) -> tuple[dict, dict]:
             control[name] = (twin(paths(log_mel * (1 + CONTROL))) - want).abs().max().item()
             bf16_trunk[name] = (outputs[idx] - model(plain_paths)).abs().max().item()
         del twin
-    print(f"[slice] max abs difference of the probabilities, kernel front end vs each plain "
+    print(f"[{tag}] max abs difference of the probabilities, kernel front end vs each plain "
           f"front end, through a float32 copy of the model (gated at {PROB_TOL}): {gate}; "
           f"the plain log-mel {CONTROL:.0%} off through it (the control, must exceed "
           f"{PROB_TOL}): {control}; through the served bf16 model (not gated): {bf16_trunk}",
           flush=True)
     for front, diff in gate.items():
-        check(diff <= PROB_TOL, f"against {front}: probabilities differ by {diff} through the "
-              "float32 model")
-        check(control[front] > PROB_TOL, f"the control of {front} ({CONTROL:.0%} off) moves "
-              f"the probabilities by {control[front]}: the gate cannot tell it from the plain "
-              "front end")
+        check(diff <= PROB_TOL, f"[{tag}] against {front}: probabilities differ by {diff} "
+              "through the float32 model")
+        check(control[front] > PROB_TOL, f"[{tag}] the control of {front} ({CONTROL:.0%} "
+              f"off) moves the probabilities by {control[front]}: the gate cannot tell it from "
+              "the plain front end")
 
     timing = {}
     for label, (serve, model, (wave, n_valid)) in (("B=8 float32 DSP", requests[0]),
                                                    ("B=128 bf16 DSP", requests[-1])):
         ms = cuda_ms(lambda: serve(model, wave, n_valid), reps=10, warmup=2, runs=3)
         timing[label] = dict(ms=ms, clips_per_s=wave.shape[0] / ms * 1e3)
-        print(f"[slice] {label}: {ms:.3f} ms per batch, {wave.shape[0] / ms * 1e3:.1f} clips/s "
-              f"(bf16 SlowFast-R50 trunk) | {card}", flush=True)
-    print(f"[slice] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        print(f"[{tag}] {label}: {ms:.3f} ms per batch, {wave.shape[0] / ms * 1e3:.1f} clips/s "
+              f"(bf16 {model_name} trunk) | {card}", flush=True)
+    print(f"[{tag}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"| {card}")
     return launches, timing
 
 
-def train_run(card: str, label: str, cfg, n_steps: int, kernel: str) -> tuple[dict, dict]:
+def train_run(card: str, label: str, cfg, n_steps: int, kernel: str,
+              profile: bool = False) -> tuple[dict, dict]:
     """``n_steps`` train steps of ``train_entry(batch=64, cfg=cfg)`` with their
-    checks, the plain-front-end comparison and the step's time."""
+    checks, the plain-front-end comparison and the step's time; with
+    ``profile`` also its card, wall and queueing times (``step_times``) and
+    one step under ``torch.profiler`` (``step_profile``)."""
     from asf_tpu_torch.dsp.logmel import edge_pad
     from asf_tpu_torch.engine.optimizer import get_lr
     from asf_tpu_torch.engine.pipeline import pack_pathways
@@ -738,7 +787,15 @@ def train_run(card: str, label: str, cfg, n_steps: int, kernel: str) -> tuple[di
     ms = cuda_ms(lambda: step(state, example, lrs[-1]), reps=10, warmup=2, runs=3)
     timing = dict(ms=ms, clips_per_s=TRAIN_BATCH / ms * 1e3, loss_diff=diff)
     print(f"[train] {label}: {ms:.3f} ms per step, {timing['clips_per_s']:.1f} clips/s at "
-          f"B={TRAIN_BATCH} (bf16 SlowFast-R50, SpecAugment, nesterov SGD) | {card}", flush=True)
+          f"B={TRAIN_BATCH} (bf16 {scfg.MODEL.MODEL_NAME} {scfg.MODEL.ARCH} R{scfg.RESNET.DEPTH}, "
+          f"SpecAugment, nesterov SGD) | {card}", flush=True)
+    if profile:
+        t = step_times(lambda: step(state, example, lrs[-1]))
+        timing.update(t)
+        print(f"[train] {label}: {t['ms']:.3f} ms a step on the card (CUDA events, median of 3 "
+              f"runs of 2 after one), wall {t['wall_ms']:.3f} ms, queued in "
+              f"{t['dispatch_ms']:.3f} ms | {card}", flush=True)
+        step_profile(f"train {label}", card, lambda: step(state, example, lrs[-1]), t["wall_ms"])
     return launches, timing
 
 
@@ -954,8 +1011,7 @@ def phase_test_cfg(card: str, cfg) -> dict:
     """Phase 6: ``test(cfg)`` from phase 5's final checkpoint, in this
     process and then through the ``run_net`` CLI; returns the in-process
     run's launch counts."""
-    from asf_tpu_torch.engine import test
-    from asf_tpu_torch.tools.loop_probe import StatsLog, write_vggsound
+    from asf_tpu_torch.tools.loop_probe import write_vggsound
 
     cfg = cfg.clone()
     root = os.path.dirname(cfg.OUTPUT_DIR)
@@ -970,6 +1026,18 @@ def phase_test_cfg(card: str, cfg) -> dict:
           f"{time.perf_counter() - t0:.1f} s; {TEST_VIEWS} views each, batches of {TEST_BATCH}",
           flush=True)
     check_loader_workers(card, cfg)
+    launches, preds, labels = vgg_test(card, cfg, "test(cfg)")
+    vgg_cli(cfg, preds, labels, "test(cfg)")
+    return launches
+
+
+def vgg_test(card: str, cfg, tag: str) -> tuple[dict, np.ndarray, np.ndarray]:
+    """``test(cfg)`` of phase 6's set (``TEST_FILES`` clips in ``TEST_VIEWS``
+    views, batches of ``TEST_BATCH``) with its gates: ``TEST_LAUNCHES`` of
+    ``logmel_bf16``, every clip with its views, the pickle and the meter's
+    top-k from it. Returns the launch counts, the scores and the labels."""
+    from asf_tpu_torch.engine import test
+    from asf_tpu_torch.tools.loop_probe import StatsLog
 
     with StatsLog() as stats:
         torch.cuda.synchronize()
@@ -979,9 +1047,9 @@ def phase_test_cfg(card: str, cfg) -> dict:
         torch.cuda.synchronize()
         launches = read_launches()
         wall = time.perf_counter() - t0
-    print(f"[test(cfg)] launches {launches}, {wall:.2f} s in test(cfg)", flush=True)
+    print(f"[{tag}] launches {launches}, {wall:.2f} s in test(cfg)", flush=True)
     want = {name: (TEST_LAUNCHES if name == "logmel_bf16" else 0) for name in REPLACES}
-    check(launches == want, f"test(cfg): launches {launches}, expected {want}")
+    check(launches == want, f"{tag}: launches {launches}, expected {want}")
     check(preds.shape == (TEST_FILES, cfg.MODEL.NUM_CLASSES[0]) and labels.shape == (TEST_FILES,),
           f"scores {preds.shape}, labels {labels.shape}")
     check(bool(np.isfinite(preds).all()), "non-finite ensembled scores")
@@ -1007,31 +1075,39 @@ def phase_test_cfg(card: str, cfg) -> dict:
     check(len(iters) == TEST_LAUNCHES, f"{len(iters)} test_iter records")
     steady = [r["time_diff"] for r in iters[1:]]
     it_ms = statistics.median(steady) * 1e3
-    print(f"[test(cfg)] {TEST_FILES} clips x {TEST_VIEWS} views: ensembled rows sum to "
+    print(f"[{tag}] {TEST_FILES} clips x {TEST_VIEWS} views: ensembled rows sum to "
           f"{sums.min():.6f}..{sums.max():.6f}; {final}; ms per test iteration {it_ms:.3f} "
           f"(B={TEST_BATCH}, median of iterations 2-{len(iters)}, host clock, no sync a batch), "
           f"{TEST_BATCH / it_ms * 1e3:.1f} clip views/s; every iteration (s, wait s): "
           f"{[(round(r['time_diff'], 5), round(r['dt_data'], 5)) for r in iters]}; "
           f"{TEST_FILES / wall:.2f} ensembled clips/s over all of test(cfg) | {card}", flush=True)
+    return launches, preds, labels
 
-    yaml_path = os.path.join(root, "test.yaml")
+
+def vgg_cli(cfg, preds: np.ndarray, labels: np.ndarray, tag: str) -> None:
+    """``test(cfg)`` of ``cfg`` through ``python -m asf_tpu_torch.tools.run_net``
+    from a YAML written at run time: exit 0 and scores within ``CLI_TOL``
+    of ``preds``."""
+    root = os.path.dirname(cfg.OUTPUT_DIR)
+    name = tag.split()[0].replace("(cfg)", "")
+    yaml_path = os.path.join(root, f"{name}.yaml")
     with open(yaml_path, "w") as f:
         f.write(cfg.dump())
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "asf_tpu_torch.tools.run_net", "--cfg", yaml_path,
-         "TRAIN.ENABLE", "False", "TEST.ENABLE", "True", "TEST.SAVE_RESULTS_PATH", "cli.pkl"],
+         "TRAIN.ENABLE", "False", "TEST.ENABLE", "True",
+         "TEST.SAVE_RESULTS_PATH", f"{name}_cli.pkl"],
         cwd=str(ROOT), capture_output=True, text=True, timeout=600)
     check(proc.returncode == 0, f"run_net exited {proc.returncode}: {proc.stderr[-2000:]}")
-    with open(os.path.join(cfg.OUTPUT_DIR, "scores", "cli.pkl"), "rb") as f:
+    with open(os.path.join(cfg.OUTPUT_DIR, "scores", f"{name}_cli.pkl"), "rb") as f:
         cli = pickle.load(f)
     diff = float(np.abs(cli["output"] - preds).max())
-    print(f"[test(cfg)] python -m asf_tpu_torch.tools.run_net --cfg test.yaml TRAIN.ENABLE False "
+    print(f"[{tag}] python -m asf_tpu_torch.tools.run_net --cfg {name}.yaml TRAIN.ENABLE False "
           f"TEST.ENABLE True: exit 0 in {time.perf_counter() - t0:.1f} s, scores {diff:.3g} max "
           f"abs from the in-process run (gated at {CLI_TOL})", flush=True)
     check(diff <= CLI_TOL and np.array_equal(cli["labels"], labels),
-          f"the CLI's scores differ by {diff} > {CLI_TOL}")
-    return launches
+          f"{tag}: the CLI's scores differ by {diff} > {CLI_TOL}")
 
 
 def write_epic(root: str, cfg) -> list:
@@ -1356,11 +1432,12 @@ def sync_calls(fn) -> list:
 def step_profile(tag: str, card: str, fn, wall_ms: float) -> None:
     """One train step, ``fn()``, under ``torch.profiler`` (device activity):
     busy ms, idle share against ``wall_ms``, the GRU kernels' ms (names with
-    ``rnn`` or ``gru``) and the top kernels."""
+    ``rnn`` or ``gru``), the device ms of each group of kernels
+    (``profile_forward.group_of``) and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from asf_tpu_torch.tools.profile_forward import busy_us
+    from asf_tpu_torch.tools.profile_forward import busy_us, group_of
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1376,12 +1453,16 @@ def step_profile(tag: str, card: str, fn, wall_ms: float) -> None:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3
     gru = {k: v for k, v in by_name.items() if any(t in k.lower() for t in ("rnn", "gru"))}
+    groups = {}
+    for k, v in by_name.items():
+        groups[group_of(k)] = groups.get(group_of(k), 0.0) + v
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     print(f"[{tag}] one train step under torch.profiler: device busy "
           f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.3f} of the step's wall "
           f"{wall_ms:.3f} ms without the profiler, {len(kernels)} kernels; the GRU's kernels "
           f"{sum(gru.values()):.3f} ms: "
           f"{[(k[:240], round(v, 4)) for k, v in sorted(gru.items(), key=lambda kv: -kv[1])]}; "
+          f"groups {sorted(((k, round(v, 3)) for k, v in groups.items()), key=lambda kv: -kv[1])}; "
           f"top kernels {[(k[:70], round(v, 3)) for k, v in top[:10]]} | {card}", flush=True)
 
 
@@ -1897,6 +1978,275 @@ def phase_state(card: str, epic_ckpt: str, root: str, gru_step: dict) -> dict:
     return out
 
 
+def phase_resnet(card: str, vgg_cfg) -> dict:
+    """Phase 10, first part: the single-pathway Slow-only and Fast-only
+    ResNet (``entry.resnet_cfg``: R50, 309 classes, weights from a seed) at
+    full width: the eval gates, the train step at B = 64 (timed, profiled,
+    its peak memory), ``train(cfg)`` of one epoch on phase 5's set and
+    ``test(cfg)`` on phase 6's from its checkpoint (the Fast-only one also
+    through ``run_net``). Returns the launch counts by path."""
+    from asf_tpu_torch.entry import resnet_cfg
+
+    out = {}
+    for arch in ("slow", "fast"):
+        cfg = resnet_cfg(arch, "vgg")
+        out[f"{arch} eval"], _ = phase_slice(card, cfg, tag=f"{arch} eval", n8=2, n128=2)
+        torch.cuda.reset_peak_memory_stats()
+        out[f"{arch} train"], _ = train_run(card, f"{arch}-only", cfg, 5, "logmel_bf16",
+                                            profile=True)
+        print(f"[train] {arch}-only: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB at B={TRAIN_BATCH} | {card}",
+              flush=True)
+        out[f"{arch} train(cfg)"], out[f"{arch} test(cfg)"] = resnet_loop(card, arch, vgg_cfg)
+    return out
+
+
+def resnet_loop(card: str, arch: str, vgg_cfg) -> tuple[dict, dict]:
+    """``train(cfg)`` of the ``arch``-only ResNet, one epoch on phase 5's
+    set (3 train, 2 precise BN, 2 val batches; the loader in this process:
+    phases 5-9 drive its workers), then ``test(cfg)`` of phase 6's set from
+    its checkpoint; returns the launch counts of both."""
+    from asf_tpu_torch.checkpoint import manager as cu
+    from asf_tpu_torch.engine import train
+    from asf_tpu_torch.entry import resnet_cfg
+    from asf_tpu_torch.tools.loop_probe import StatsLog
+
+    tag = f"{arch} train(cfg)"
+    cfg = resnet_cfg(arch, "vgg")
+    for key, value in vgg_cfg.VGGSOUND.items():
+        cfg.VGGSOUND[key] = value
+    cfg.VGGSOUND.TEST_LIST = "test.pkl"  # phase 6's
+    cfg.GPU.DSP_PRECISION = "BFLOAT16"
+    cfg.TRAIN.BATCH_SIZE = TRAIN_BATCH
+    cfg.BN.USE_PRECISE_STATS = True
+    cfg.BN.NUM_BATCHES_PRECISE = 2
+    cfg.TRAIN.EVAL_PERIOD = cfg.TRAIN.CHECKPOINT_PERIOD = 1
+    cfg.SOLVER.MAX_EPOCH = 1
+    cfg.LOG_PERIOD = 1
+    cfg.LOG_MODEL_INFO = False
+    cfg.DATA_LOADER.NUM_WORKERS = 0
+    cfg.OUTPUT_DIR = os.path.join(os.path.dirname(vgg_cfg.OUTPUT_DIR), f"{arch}_out")
+    with StatsLog() as stats:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        state = train(cfg)
+        torch.cuda.synchronize()
+        train_launches = read_launches()
+        wall = time.perf_counter() - t0
+    print(f"[{tag}] launches {train_launches}, {wall:.1f} s in train(cfg)", flush=True)
+    want = {name: (EPOCH_LAUNCHES if name == "logmel_bf16" else 0) for name in REPLACES}
+    check(train_launches == want, f"{tag}: launches {train_launches}, expected {want}")
+    check(state.step == 3 and all(p.is_cuda for p in state.model.parameters()),
+          f"{tag} ended at step {state.step}, or its parameters left the card")
+    iters = stats.of("train_iter")
+    (val,) = stats.of("val_epoch")
+    losses = [r["loss"] for r in iters + stats.of("train_epoch")]
+    check(len(iters) == 3 and all(math.isfinite(v) for v in losses), f"{tag} losses {losses}")
+    check(0.0 <= val["top1_err"] <= 100.0, f"{tag} val record {val}")
+    ckpt = cu.get_path_to_checkpoint(cfg.OUTPUT_DIR, 1)
+    check(os.path.exists(ckpt), f"{tag}: {ckpt} missing")
+    print(f"[{tag}] train iterations (s, wait s) {_times(iters)}; val iterations "
+          f"{_times(stats.of('val_iter'))}; train_epoch {stats.of('train_epoch')}; val_epoch "
+          f"{val} | {card}", flush=True)
+    del state
+
+    tcfg = cfg.clone()
+    tcfg.TEST.NUM_ENSEMBLE_VIEWS = TEST_VIEWS
+    tcfg.TEST.BATCH_SIZE = TEST_BATCH
+    tcfg.TEST.CHECKPOINT_FILE_PATH = ckpt
+    tcfg.TEST.SAVE_RESULTS_PATH = f"{arch}_scores.pkl"
+    test_launches, preds, labels = vgg_test(card, tcfg, f"{arch} test(cfg)")
+    if arch == "fast":  # one CLI run bounds the time
+        vgg_cli(tcfg, preds, labels, f"{arch} test(cfg)")
+    return train_launches, test_launches
+
+
+def _seconds(stamp: str) -> float:
+    h, m, sec = stamp.split(":")
+    return int(h) * 3600 + int(m) * 60 + float(sec)
+
+
+def slide_windows(cfg, rows: list, durations: list) -> list:
+    """The plain reference of ``EpicKitchensSlide``'s windows: (video, start
+    s, end s, verb labels, noun labels) of each, from the annotation
+    ``rows`` and the (video, duration) list in the csv's order. A window is
+    taken while the middle of its full span lies before the video's end
+    (inside the action), and its end is then clipped there."""
+    s = cfg.TEST.SLIDE
+    out = []
+    if s.INSIDE_ACTION_BOUNDS:
+        for r in rows:
+            start, stop = _seconds(r["start_timestamp"]), _seconds(r["stop_timestamp"])
+            spans = [(start, stop)]
+            if not s.PER_ACTION_INSTANCE and stop - start >= s.WIN_SIZE:
+                spans, a = [], start
+                while (a + a + s.WIN_SIZE) / 2 <= stop:
+                    spans.append((a, min(a + s.WIN_SIZE, stop)))
+                    a += s.HOP_SIZE
+            out += [(r["video_id"], a, b, r["verb_class"], r["noun_class"]) for a, b in spans]
+        return out
+    for video, duration in durations:
+        anns = sorted((r for r in rows if r["video_id"] == video),
+                      key=lambda r: (r["start_timestamp"], r["stop_timestamp"]))
+        a = 0.0
+        while (a + a + s.WIN_SIZE) / 2 < duration:
+            b = min(a + s.WIN_SIZE, duration)
+            hits = [r for r in anns if _seconds(r["start_timestamp"]) <= (a + b) / 2
+                    <= _seconds(r["stop_timestamp"])][:SLIDE_OVERLAP]
+            hits += hits[:1] * (SLIDE_OVERLAP - len(hits))
+            out.append((video, a, b, [r["verb_class"] for r in hits] or [-1] * SLIDE_OVERLAP,
+                        [r["noun_class"] for r in hits] or [-1] * SLIDE_OVERLAP))
+            a += s.HOP_SIZE
+    return out
+
+
+def phase_slide(card: str, epic_ckpt: str, root: str) -> dict:
+    """Phase 10, second part: sliding-window ``test(cfg)`` over phase 7's
+    videos from phase 7's checkpoint (``entry.epic_slide_cfg``) in each
+    mode, held to ``slide_windows``; the whole-video run with 8 loader
+    workers (none on the card) and then through ``run_net`` on the repo's
+    ``slide/asf-original-whole-video-1s.yaml``. Returns the launch counts
+    of the three runs together."""
+    from asf_tpu_torch.data.epickitchens_slide import EpicKitchensSlide
+    from asf_tpu_torch.engine import metrics, test
+    from asf_tpu_torch.entry import epic_slide_cfg
+    from asf_tpu_torch.tools.loop_probe import StatsLog
+
+    durations = [(f"P01_{v:02d}", EPIC_VIDEO_SECS) for v in range(EPIC_VIDEOS)]
+    with open(os.path.join(root, SLIDE_DURATIONS), "w") as f:
+        f.write("video_id,duration\n" + "".join(f"{v},{d}\n" for v, d in durations))
+    with open(os.path.join(root, "epic_test.pkl"), "rb") as f:
+        rows = pickle.load(f)
+    launches = {name: 0 for name in REPLACES}
+    whole = None
+    for mode in ("whole_video", "action_bounds", "per_instance"):
+        tag = f"slide {mode}"
+        cfg = epic_slide_cfg(mode)
+        c = cfg.EPICKITCHENS
+        c.AUDIO_DATA_FILE, c.ANNOTATIONS_DIR = os.path.join(root, "epic_audio"), root
+        c.PROCESSED_TEST_LIST, c.VIDEO_DURS = "epic_test.pkl", SLIDE_DURATIONS
+        cfg.TEST.CHECKPOINT_FILE_PATH = epic_ckpt
+        cfg.TEST.SAVE_RESULTS_PATH = f"slide_{mode}.pkl"
+        cfg.OUTPUT_DIR = os.path.join(root, "slide_out")
+        cfg.LOG_PERIOD = 1
+        # The whole-video run reads in 8 worker processes; the other two
+        # (a few batches) in this process.
+        cfg.DATA_LOADER.NUM_WORKERS = LOADER_WORKERS if mode == "whole_video" else 0
+        want = slide_windows(cfg, rows, durations)
+        ds = EpicKitchensSlide(cfg, "test")
+        sr = cfg.AUDIO_DATA.SAMPLING_RATE
+        got = [(v, int(a), int(a + n)) for v, a, n in zip(ds._video, ds._start, ds._num)]
+        spans = [(v, round(a * sr), round(b * sr)) for v, a, b, _, _ in want]
+        check(got == spans, f"{tag}: {len(got)} windows, the plain reference {len(spans)}; "
+              f"first samples {got[:2]} against {spans[:2]}")
+        for key, col in (("verb", 3), ("noun", 4)):
+            check(np.array_equal(ds._labels[key], np.asarray([w[col] for w in want])),
+                  f"{tag}: the {key} labels differ from the plain reference")
+        n_batches = -(-len(want) // cfg.TEST.BATCH_SIZE)
+        if mode == "whole_video":
+            check(len(want) == EPIC_VIDEOS * 239,
+                  f"{len(want)} windows, not {EPIC_VIDEOS} videos x 239 (1 s every 0.5 s over "
+                  f"{EPIC_VIDEO_SECS} s)")
+            check_loader_workers(card, cfg)
+        with StatsLog() as stats:
+            torch.cuda.synchronize()
+            zero_launches()
+            t0 = time.perf_counter()
+            (verb, noun), (verb_l, noun_l), ids = test(cfg)
+            torch.cuda.synchronize()
+            counts = read_launches()
+            wall = time.perf_counter() - t0
+        check(counts == {k: (n_batches if k == "logmel_bf16" else 0) for k in REPLACES},
+              f"{tag} test(cfg): launches {counts}, expected {n_batches} of logmel_bf16")
+        for k, n in counts.items():
+            launches[k] += n
+        per_instance = cfg.TEST.SLIDE.PER_ACTION_INSTANCE
+        labelled = [w for w in want if np.all(np.asarray(w[3]) != -1)]
+        n = len(labelled)
+        with open(os.path.join(cfg.OUTPUT_DIR, "scores", cfg.TEST.SAVE_RESULTS_PATH), "rb") as f:
+            saved = pickle.load(f)
+        check(set(saved) == {"verb_output", "noun_output", "labels", "narration_id"}
+              and saved["verb_output"].shape == (n, 97) and saved["noun_output"].shape == (n, 300)
+              and np.array_equal(saved["verb_output"], verb)
+              and np.array_equal(saved["noun_output"], noun),
+              f"{tag}: score pickle {sorted(saved)}, {saved['verb_output'].shape}, "
+              f"{saved['noun_output'].shape}, expected {n} windows")
+        for scores in (verb, noun):
+            sums = scores.sum(axis=1)
+            check(bool(np.isfinite(scores).all()) and bool((np.abs(sums - 1) <= 1e-3).all()),
+                  f"{tag}: rows sum to {sums.min()}..{sums.max()}, not 1")
+        width = () if per_instance else (SLIDE_OVERLAP,)
+        want_v = np.asarray([np.broadcast_to(w[3], width) if mode == "whole_video" or
+                             per_instance else [w[3]] + [-1] * (SLIDE_OVERLAP - 1)
+                             for w in labelled])
+        check(verb_l.shape == (n, *width) and np.array_equal(verb_l, want_v)
+              and np.array_equal(saved["labels"]["verb"], verb_l),
+              f"{tag}: verb labels {verb_l.shape}, expected {want_v.shape}")
+        (final,) = stats.of("test_final")
+        check(final["num_windows_eval"] == n, f"{tag}: {final}")
+        recomputed = {}
+        for t, acc in (("verb", metrics.topk_accuracies_slide(
+                saved["verb_output"], saved["labels"]["verb"], (1, 5), per_instance)),
+                       ("noun", metrics.topk_accuracies_slide(
+                           saved["noun_output"], saved["labels"]["noun"], (1, 5), per_instance)),
+                       ("action", metrics.multitask_topk_accuracies_slide(
+                           (saved["verb_output"], saved["noun_output"]),
+                           (saved["labels"]["verb"], saved["labels"]["noun"]), (1, 5),
+                           per_instance))):
+            for k, v in zip((1, 5), acc):
+                recomputed[f"{t}_top{k}_acc"] = f"{v:.2f}"
+        check(recomputed == {k: final[k] for k in recomputed},
+              f"{tag}: top-k from the pickle {recomputed}, the meter's {final}")
+        iters = stats.of("test_iter")
+        check(len(iters) == n_batches, f"{tag}: {len(iters)} test_iter records")
+        steady = [r["time_diff"] for r in iters[1:]] or [iters[0]["time_diff"]]
+        it_ms = statistics.median(steady) * 1e3
+        print(f"[{tag}] test(cfg) of {len(want)} windows ({n} annotated) in {n_batches} batches "
+              f"of up to {cfg.TEST.BATCH_SIZE} x {cfg.AUDIO_DATA.NUM_FRAMES} frames: launches "
+              f"{counts}, {wall:.2f} s in test(cfg); {it_ms:.3f} ms per test iteration (median "
+              f"of iterations {min(2, len(iters))}-{len(iters)}, host clock, no sync a batch), "
+              f"{cfg.TEST.BATCH_SIZE / it_ms * 1e3:.1f} windows/s; first batch's wait "
+              f"{iters[0]['dt_data']:.4f} s; {final}; every iteration (s, wait s) "
+              f"{[(round(r['time_diff'], 5), round(r['dt_data'], 5)) for r in iters]} | {card}",
+              flush=True)
+        if mode == "whole_video":
+            whole = (cfg, verb, noun, list(ids))
+            check(set(ids) == {str(i) for i in range(EPIC_VIDEOS)},
+                  f"{tag}: narration ids {sorted(set(ids))}, not each video's row number")
+
+    cfg, verb, noun, ids = whole
+    yaml = os.path.join(ROOT, "models", "asf", "config", "slide",
+                        "asf-original-whole-video-1s.yaml")
+    c = cfg.EPICKITCHENS
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "asf_tpu_torch.tools.run_net", "--cfg", yaml,
+         "TRAIN.ENABLE", "False", "OUTPUT_DIR", cfg.OUTPUT_DIR,
+         "EPICKITCHENS.AUDIO_DATA_FILE", c.AUDIO_DATA_FILE,
+         "EPICKITCHENS.ANNOTATIONS_DIR", c.ANNOTATIONS_DIR,
+         "EPICKITCHENS.PROCESSED_TEST_LIST", c.PROCESSED_TEST_LIST,
+         "TEST.CHECKPOINT_FILE_PATH", cfg.TEST.CHECKPOINT_FILE_PATH,
+         "TEST.SAVE_RESULTS_PATH", "slide_cli.pkl",
+         # phase 7's checkpoint is of epic_cfg's trunk (ROADMAP.md section 3)
+         "SLOWFAST.ALPHA", str(cfg.SLOWFAST.ALPHA),
+         "SLOWFAST.FUSION_KERNEL_SZ", str(cfg.SLOWFAST.FUSION_KERNEL_SZ),
+         "GPU.DSP_PRECISION", cfg.GPU.DSP_PRECISION, "DATA_LOADER.NUM_WORKERS", "0"],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"run_net exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(os.path.join(cfg.OUTPUT_DIR, "scores", "slide_cli.pkl"), "rb") as f:
+        cli = pickle.load(f)
+    diff = max(float(np.abs(cli["verb_output"] - verb).max()),
+               float(np.abs(cli["noun_output"] - noun).max()))
+    print(f"[slide whole_video] python -m asf_tpu_torch.tools.run_net --cfg "
+          f"models/asf/config/slide/asf-original-whole-video-1s.yaml TRAIN.ENABLE False (data, "
+          f"checkpoint and trunk overridden): exit 0 in {time.perf_counter() - t0:.1f} s, "
+          f"scores {diff:.3g} max abs from the in-process run (gated at {CLI_TOL})", flush=True)
+    check(diff <= CLI_TOL and list(cli["narration_id"]) == ids,
+          f"the slide CLI's scores differ by {diff} > {CLI_TOL}")
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card, sass = phase_device()
@@ -1910,12 +2260,18 @@ def main() -> None:
             card, loop_cfg, train_timing["flagship"]["ms"], root)
         gru_train_launches, gru_test_launches, gru_step = phase_gru(card, epic_ckpt, root)
         state_launches = phase_state(card, epic_ckpt, root, gru_step)
+        t10 = time.perf_counter()
+        resnet_launches = phase_resnet(card, loop_cfg)
+        t_slide = time.perf_counter()
+        slide_launches = phase_slide(card, epic_ckpt, root)
+        print(f"[smoke] phase 10: {t_slide - t10:.1f} s for the two ResNets, "
+              f"{time.perf_counter() - t_slide:.1f} s for the sliding windows", flush=True)
     check_instructions(card, sass, kernels)
     paths = {"eval": eval_launches, **{f"train {k}": v for k, v in train_launches.items()},
              "train(cfg)": loop_launches, "test(cfg)": test_launches,
              "epic train(cfg)": epic_train_launches, "epic test(cfg)": epic_test_launches,
              "gru train(cfg)": gru_train_launches, "gru test(cfg)": gru_test_launches,
-             **state_launches}
+             **state_launches, **resnet_launches, "slide test(cfg)": slide_launches}
     line = []
     for name, res in kernels.items():
         geometry, batch = LINE_BATCH[name]

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card;
 the prefetcher's stream handling (fed by loader worker processes too) and
 the launches of ``train(cfg)`` and ``test(cfg)``, for VGG-Sound, for
-EPIC-KITCHENS verb/noun and for the GRU sequence model.
+EPIC-KITCHENS verb/noun (its sliding windows too), for the GRU sequence model
+and for the single-pathway ResNet.
 
 Imports no JAX, so it runs on a machine with a GPU and no JAX:
 
@@ -476,3 +477,49 @@ def test_gru_test_cfg_counts_its_launches(tmp_path):
     for scores in (verb, noun):
         np.testing.assert_allclose(scores.sum(axis=1), 1.0, rtol=0, atol=1e-4)
     assert list(ids) == [f"test_{i}" for i in range(5)]
+
+
+@pytest.mark.parametrize("arch", ["slow", "fast"])
+def test_resnet_train_and_test_cfg_count_their_launches(tmp_path, arch):
+    """The tiny single-pathway ResNet at the flagship geometry, B = 4: 12
+    train clips (3 steps), precise BN over 2 batches and 6 val clips (4 + 2)
+    make 7 launches of ``logmel_bf16``; then 5 test clips in 2 views (4 + 4
+    + 2) 3 more, each clip's 2 probability rows summed."""
+    cfg = _tiny_vgg_cfg(tmp_path, "BFLOAT16", {"train": 12, "val": 6, "test": 5})
+    cfg.MODEL.MODEL_NAME, cfg.MODEL.ARCH = "ResNet", arch
+    cfg.TEST.NUM_ENSEMBLE_VIEWS = 2
+    for w in WRAPPERS:
+        w.launches = 0
+    state = train(cfg)
+    torch.cuda.synchronize()
+    assert _launches() == {w.__name__: (7 if w.__name__ == "logmel_bf16" else 0)
+                           for w in WRAPPERS}
+    assert state.step == 3 and state.model.s1.pathway0_stem.conv.weight.is_cuda
+    cfg.TEST.CHECKPOINT_FILE_PATH = str(tmp_path / "out" / "checkpoints"
+                                        / "checkpoint_epoch_00001.pyth")
+    preds, _ = run_test(cfg)
+    torch.cuda.synchronize()
+    assert _launches()["logmel_bf16"] == 10
+    np.testing.assert_allclose(preds.sum(axis=1), 2.0, rtol=0, atol=1e-4)
+
+
+def test_slide_test_cfg_counts_its_launches(tmp_path):
+    """Whole-video windows of 1 s every 0.5 s over ``_tiny_epic_cfg``'s 2
+    videos of 10 s (19 each), B = 16: 3 launches; the scored windows'
+    verb rows are probability rows and their labels (4,) rows."""
+    cfg = _tiny_epic_cfg(tmp_path, {"test": 5})
+    (tmp_path / "EPIC_100_video_info.csv").write_text("video_id,duration\nP01_00,10\nP01_01,10\n")
+    cfg.TEST.DATASET = "EpicKitchensSlide"
+    cfg.TEST.BATCH_SIZE = 16
+    s = cfg.TEST.SLIDE
+    s.ENABLE, s.WIN_SIZE, s.HOP_SIZE = True, 1.0, 0.5
+    s.INSIDE_ACTION_BOUNDS = s.PER_ACTION_INSTANCE = False
+    for w in WRAPPERS:
+        w.launches = 0
+    (verb, _), (verb_l, _), ids = run_test(cfg)
+    torch.cuda.synchronize()
+    assert _launches() == {w.__name__: (3 if w.__name__ == "logmel_bf16" else 0)
+                           for w in WRAPPERS}
+    assert 0 < verb.shape[0] <= 38 and verb_l.shape == (verb.shape[0], 4)
+    np.testing.assert_allclose(verb.sum(axis=1), 1.0, rtol=0, atol=1e-4)
+    assert set(ids) <= {"0", "1"}

@@ -634,16 +634,22 @@ def test_run_net_trains_then_tests_a_gru_yaml(gru_root, tmp_path):
     assert np.isfinite(scores["noun_output"]).all() and len(scores["narration_id"]) == 6
 
 
-@pytest.mark.parametrize("name", sorted(n for n in os.listdir(os.path.join(
-    ROOT, "models", "asf", "config")) if n.endswith(".yaml")))
+@pytest.mark.parametrize("name", sorted(
+    os.path.relpath(os.path.join(d, n), os.path.join(ROOT, "models", "asf", "config"))
+    for d, _, names in os.walk(os.path.join(ROOT, "models", "asf", "config"))
+    for n in names if n.endswith(".yaml")))
 def test_each_repo_yaml_merges_into_the_port_config(name):
-    """``run_net --cfg`` takes every config of the repo (the keys the
-    observers and the upstream DataLoader read included); the GRU ones
-    name the GRU model and dataset."""
+    """``run_net --cfg`` takes every config of the repo, the 7 under
+    ``slide/`` among the 23 (the keys the observers and the upstream
+    DataLoader read included); the GRU ones name the GRU model and dataset,
+    the slide ones the sliding-window test set and its windows."""
     cfg = load_config(parse_args(["--cfg", os.path.join(ROOT, "models", "asf", "config", name)]))
     if "gru" in name:
         assert cfg.MODEL.MODEL_NAME == "AudioSlowFastGRU"
         assert cfg.TRAIN.DATASET.startswith("EpicKitchensGRU")
+    if name.startswith("slide"):
+        assert cfg.TEST.SLIDE.ENABLE and cfg.TEST.DATASET == "EpicKitchensSlide"
+        assert cfg.TEST.SLIDE.HOP_SIZE == 0.5 and cfg.TEST.SLIDE.LABEL_FRAME == 0.5
 
 
 def test_epic_gru_cfg_is_the_yaml_on_the_flagship_trunk():
