@@ -15,6 +15,11 @@ loads any ``.pyth`` by name and shape through ``pyth_names.load_into``, as
 the JAX package loads every ``.pyth`` (``asf_tpu/checkpoint/manager.py:170-175``):
 a VGG-Sound checkpoint seeds the trunk of a verb/noun model, and each leaf
 it cannot give (the heads) keeps its initial value with a warning.
+
+In a process group only global rank 0 writes a checkpoint (the model's own
+``state_dict``, never its ``DistributedDataParallel`` wrapper's, so no name
+takes a ``module.`` prefix), and every rank then waits at a barrier, so
+that an auto-resume on any rank reads the same file. Every rank loads.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..parallel import dist
 from ..utils.logging import get_logger
 from .pyth_names import load_into
 
@@ -63,10 +69,19 @@ def save_checkpoint(path_to_job: str, state, epoch: int, cfg, name: Optional[str
     """Writes ``state`` (a ``steps.TrainState``) after ``epoch``; returns the path.
 
     The file is written beside its final name and renamed, so that a run cut
-    while saving leaves no partial checkpoint for auto-resume to find."""
-    os.makedirs(_ckpt_root(path_to_job), exist_ok=True)
+    while saving leaves no partial checkpoint for auto-resume to find. In a
+    process group rank 0 writes and every rank returns after the barrier
+    that follows."""
     path = (os.path.join(_ckpt_root(path_to_job), f"{name}.pyth") if name
             else get_path_to_checkpoint(path_to_job, epoch + 1))
+    if dist.is_primary():
+        _write(path, state, epoch, cfg)
+    dist.barrier()
+    return path
+
+
+def _write(path: str, state, epoch: int, cfg) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     payload = {
         "epoch": epoch,
         "step": int(state.step),
@@ -78,7 +93,6 @@ def save_checkpoint(path_to_job: str, state, epoch: int, cfg, name: Optional[str
     tmp = f"{path}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
-    return path
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:

@@ -22,7 +22,8 @@ _C.BN.FREEZE = False
 _C.BN.USE_PRECISE_STATS = False
 _C.BN.NUM_BATCHES_PRECISE = 200
 _C.BN.WEIGHT_DECAY = 0.0
-# `batchnorm`, `sub_batchnorm`, `sync_batchnorm`; the port builds `batchnorm`.
+# `batchnorm`, `sub_batchnorm` (NUM_SPLITS splits of the global batch) or
+# `sync_batchnorm` (groups of NUM_SYNC_DEVICES ranks): models/norm.py.
 _C.BN.NORM_TYPE = "batchnorm"
 _C.BN.NUM_SPLITS = 1
 _C.BN.NUM_SYNC_DEVICES = 1
@@ -221,7 +222,8 @@ _C.SOLVER.BASE_LR_SCALE_NUM_SHARDS = False
 # ---------------------------------------------------------------------------
 _C.NUM_SHARDS = 1
 _C.SHARD_ID = 0
-# One device a process: train(cfg) and test(cfg) raise for more.
+# Ranks a host (one process a device, started by tools/run_net.py);
+# TRAIN.BATCH_SIZE and TEST.BATCH_SIZE are a host's and split over them.
 _C.NUM_GPUS = 1
 _C.OUTPUT_DIR = "./tmp"
 _C.RNG_SEED = 1
@@ -259,6 +261,8 @@ def _assert_and_infer_cfg(cfg: CfgNode) -> CfgNode:
     """The checks of ``asf_tpu``'s ``_assert_and_infer_cfg`` on the nodes kept."""
     if cfg.BN.USE_PRECISE_STATS:
         assert cfg.BN.NUM_BATCHES_PRECISE >= 0
+    assert cfg.TRAIN.BATCH_SIZE % max(1, cfg.NUM_GPUS) == 0
+    assert cfg.TEST.BATCH_SIZE % max(1, cfg.NUM_GPUS) == 0
     assert cfg.RESNET.NUM_GROUPS > 0
     assert cfg.RESNET.WIDTH_PER_GROUP > 0
     assert cfg.RESNET.WIDTH_PER_GROUP % cfg.RESNET.NUM_GROUPS == 0

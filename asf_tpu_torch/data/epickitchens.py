@@ -316,6 +316,10 @@ class EpicKitchensGRU(EpicKitchens):
             self._embedding.append(emb.astype(np.float32) if emb.size
                                    else np.zeros(512, np.float32))
 
+    def chain_windows(self, indices) -> np.ndarray:
+        """The window counts of chains ``indices``, read from the table (no audio)."""
+        return self._n_windows[np.asarray(indices, np.int64)]
+
     def _region(self, row: int) -> tuple[int, int]:
         """(first, end) sample of row ``row``'s covering region: the
         segment of an action shorter than a clip (empty for ``stop <=

@@ -42,6 +42,17 @@ them, once.
 The last val batch keeps its real rows only (no padding, no mask): the JAX
 package pads it because XLA compiles static shapes; the port computes the
 metrics on the rows it has. The host-to-card copy is ``data/prefetch.py``'s.
+
+With N = ``NUM_GPUS`` ranks on a host (``parallel/dist.py``), local rank r
+reads only rows ``[r*B/N, (r+1)*B/N)`` of each host batch of B rows, the
+rows the JAX package's ``shard_batch`` puts on its device r: the items are
+drawn per index, so a rank's rows are bit for bit those of the whole
+batch. A ragged host batch is first padded to B rows by repeating its last
+index, as ``pad_batch_to`` repeats its last row, and each rank's batch then
+carries ``n_real``, its real rows (0 at times), and ``host_rows``, the host
+batch's. Chains pad to the bucket of the host batch's longest chain, so
+that every rank of a host pads to the same window count as the JAX package
+does for the whole batch.
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ import numpy as np
 import torch
 from torch.utils import data as tud
 
+from ..parallel import dist
 from . import epickitchens as _epic  # noqa: F401  (registers the dataset)
 from . import epickitchens_slide as _epic_slide  # noqa: F401  (registers the dataset)
 from . import vggsound as _vgg  # noqa: F401  (registers the dataset)
@@ -68,12 +80,16 @@ def bucket_windows(n: int, max_n: int) -> int:
     return min(b, max_n)
 
 
-def _collate_chains(items: List[Dict[str, Any]], max_windows: Optional[int]) -> Dict[str, Any]:
+def _collate_chains(items: List[Dict[str, Any]], max_windows: Optional[int],
+                    n_max: Optional[int] = None) -> Dict[str, Any]:
     """waveform (B, Nb, S), n_valid (B, Nb), lengths (B,) and, where the
-    items carry it, noun_embedding (B, 512); Nb is the longest chain's
-    bucket. Padded windows are zeros with ``n_valid`` 1 (the front end's
-    edge replication needs a frame); the model masks them by ``lengths``."""
-    n_max = max(int(it["length"]) for it in items)
+    items carry it, noun_embedding (B, 512); Nb is the bucket of the longest
+    chain, or of ``n_max`` windows when given (a rank's share of a host
+    batch pads as the whole batch does). Padded windows are zeros with
+    ``n_valid`` 1 (the front end's edge replication needs a frame); the
+    model masks them by ``lengths``."""
+    if n_max is None:
+        n_max = max(int(it["length"]) for it in items)
     nb = bucket_windows(n_max, max_windows or n_max)
     # int16 only when every chain is raw PCM; otherwise the int16 chains
     # take the /32768 scale here, as single clips do.
@@ -96,14 +112,15 @@ def _collate_chains(items: List[Dict[str, Any]], max_windows: Optional[int]) -> 
     return out
 
 
-def collate(items: List[Dict[str, Any]], max_windows: Optional[int] = None) -> Dict[str, Any]:
+def collate(items: List[Dict[str, Any]], max_windows: Optional[int] = None,
+            n_max: Optional[int] = None) -> Dict[str, Any]:
     """Stack items. Single clips: waveform (B, S), n_valid (B,); window
     chains: ``_collate_chains``, padded to at most ``max_windows``. Then
     labels as a dict of stacked arrays (``class_id``, or ``verb`` and
     ``noun``), index (B,) and metadata as lists (EPIC's ``narration_id``)."""
     first = items[0]
     if first["waveform"].ndim == 2:
-        out = _collate_chains(items, max_windows)
+        out = _collate_chains(items, max_windows, n_max)
     else:
         waves = [it["waveform"] for it in items]
         if len({w.dtype for w in waves}) > 1:
@@ -146,13 +163,24 @@ class _Batches(tud.Dataset):
         return _rebuilt, (type(ds), ds.cfg, ds.mode, self.max_windows)
 
     def __getitem__(self, key):
-        epoch, chunk = key
-        return collate(self.dataset.get_batch(epoch, chunk), self.max_windows)
+        epoch, chunk, *share = key
+        if not share:
+            return collate(self.dataset.get_batch(epoch, chunk), self.max_windows)
+        lo, hi = dist.host_rows(*share)
+        real = len(chunk)
+        padded = np.concatenate([chunk, np.repeat(chunk[-1:], share[2] - real)])
+        windows = getattr(self.dataset, "chain_windows", None)
+        batch = collate(self.dataset.get_batch(epoch, padded[lo:hi]), self.max_windows,
+                        None if windows is None else int(windows(chunk).max()))
+        batch["n_real"] = max(0, min(hi, real) - lo)
+        batch["host_rows"] = real
+        return batch
 
 
 class _Chunks(tud.Sampler):
     """One pass over ``loader``: its ``(epoch, chunk)`` keys, taken from its
-    epoch and order when the pass starts."""
+    epoch and order when the pass starts; with ranks on the host, each key
+    also names this rank's share, ``(local rank, local ranks, batch size)``."""
 
     def __init__(self, loader: "AsfLoader"):
         self.loader = loader
@@ -163,17 +191,20 @@ class _Chunks(tud.Sampler):
     def __iter__(self):
         ld, bs = self.loader, self.loader.batch_size
         idx = ld._indices()
+        share = () if ld.local_size == 1 else (ld.local_rank, ld.local_size, bs)
         for b in range(len(ld)):
-            yield ld.epoch, idx[b * bs : (b + 1) * bs]
+            yield (ld.epoch, idx[b * bs : (b + 1) * bs], *share)
 
 
 class AsfLoader:
     """Iterable over collated numpy batches; with ``num_workers > 0`` its
-    worker processes start at the first pass and live until ``close``."""
+    worker processes start at the first pass and live until ``close``.
+    ``rank``/``world_size`` split the data over hosts; ``local_rank`` of
+    ``local_size`` takes its rows of each host batch."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool, drop_last: bool,
                  num_workers: int = 8, seed: int = 0, rank: int = 0, world_size: int = 1,
-                 max_windows: Optional[int] = None):
+                 max_windows: Optional[int] = None, local_rank: int = 0, local_size: int = 1):
         self.dataset = dataset
         self.max_windows = max_windows
         self.batch_size = batch_size
@@ -184,6 +215,8 @@ class AsfLoader:
         self.epoch = 0
         self.rank = rank
         self.world_size = world_size
+        self.local_rank = local_rank
+        self.local_size = local_size
         self._dl: Optional[tud.DataLoader] = None
 
     def _loader(self) -> tud.DataLoader:
@@ -243,7 +276,10 @@ class AsfLoader:
 
 def construct_loader(cfg, split: str) -> AsfLoader:
     """The loader of ``split``: train and train+val shuffle and drop the
-    last partial batch; val and test keep the order and every item."""
+    last partial batch; val and test keep the order and every item. Train
+    and val are split over hosts (``SHARD_ID`` of ``NUM_SHARDS``); every
+    host tests on the whole test set, as the JAX package's host-local test
+    mesh does (``asf_tpu/engine/test_loop.py:176-186``)."""
     assert split in ["train", "val", "test", "train+val"]
     if split == "test":
         dataset_name, batch_size = cfg.TEST.DATASET, cfg.TEST.BATCH_SIZE
@@ -257,9 +293,11 @@ def construct_loader(cfg, split: str) -> AsfLoader:
         drop_last=train,
         num_workers=cfg.DATA_LOADER.NUM_WORKERS,
         seed=cfg.RNG_SEED,
-        rank=cfg.SHARD_ID,
-        world_size=cfg.NUM_SHARDS,
+        rank=0 if split == "test" else cfg.SHARD_ID,
+        world_size=1 if split == "test" else cfg.NUM_SHARDS,
         max_windows=cfg.AUDIO_DATA.MAX_NB_SPECTROGRAMS,
+        local_rank=dist.local_rank(cfg),
+        local_size=dist.local_size(cfg),
     )
 
 

@@ -8,6 +8,11 @@ Counterpart of ``asf_tpu/dsp/specaugment.py:34-103``, split in two:
   ``dsp/warp.py:sparse_image_warp``, the masks by index comparison; no
   Python loop over samples.
 
+Across ranks every rank's generator is seeded alike and draws for the
+global batch, rank after rank, then keeps its own rows (``share``): a
+rank's rows get the draws they would get in one process, as each row's
+integers come from its own place in each draw.
+
 ``torch`` cannot replay ``jax.random``, so the tests feed ``apply`` the
 integers the JAX package draws, and check ``draw`` by its distribution.
 
@@ -106,6 +111,20 @@ def apply(spec: torch.Tensor, draws: dict, warp_param: int = 5, enable_warp: boo
     return _masks(spec, *draws["time"], axis=1)
 
 
-def spec_augment(spec: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """Draws and applies SpecAugment with the reference's parameters."""
-    return apply(spec, draw(*spec.shape, generator))
+def _rows(draws: dict, lo: int, hi: int) -> dict:
+    """Rows ``[lo, hi)`` of every tensor of ``draws``."""
+    return {k: tuple(t[lo:hi] for t in v) if isinstance(v, tuple) else v[lo:hi]
+            for k, v in draws.items()}
+
+
+def spec_augment(spec: torch.Tensor, generator: torch.Generator,
+                 share: tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """Draws and applies SpecAugment with the reference's parameters. With
+    ``share = (rank, ranks)`` the draws are made for ``ranks`` batches like
+    ``spec`` and rank ``rank``'s rows of them are applied."""
+    rank, ranks = share
+    b, t_len, n_mels = spec.shape
+    draws = draw(b * ranks, t_len, n_mels, generator)
+    if ranks > 1:
+        draws = _rows(draws, rank * b, (rank + 1) * b)
+    return apply(spec, draws)

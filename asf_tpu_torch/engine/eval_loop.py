@@ -13,6 +13,15 @@ accuracies at the flush; there each batch's state labels are built
 (``steps.prepare_state_labels``) and it is scored by the numpy
 ``metrics.state_metrics`` into the meter. The plots, the JAX package's
 ``DeviceValCache`` and its fused K-step path are not ported.
+
+Across ranks each rank scores its rows of each host batch (a padded last
+batch: its ``n_real`` real rows, none at times), the correct counts are
+summed over the ranks on the card with one ``all_reduce`` and divided by
+the global batch's real rows, so every rank's meter takes the numbers of
+the JAX package's one program over the whole batch
+(``asf_tpu/engine/eval_loop.py:313-376``). The state head's numpy metrics
+do not add up over ranks: at the flush each batch's state inputs are
+gathered from every rank and rank 0 scores the real rows.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..data.prefetch import prefetch
+from ..parallel import dist
 from . import metrics
 from .meters import EPICValMeter, ValMeter
 from .steps import has_state_head, is_multitask, prepare_state_labels, state_of
@@ -31,6 +41,16 @@ def _state_inputs(probs, batch: dict):
     x_s, lengths = state_of(probs, batch.get("lengths"))
     labels = batch["labels"]
     return x_s, labels["precs"], labels["posts"], lengths
+
+
+def _gather_state(state, host_rows: int, cfg):
+    """A batch's state inputs of every rank, their real rows in rank order:
+    rank ``h * N + r`` holds rows ``[r * n, (r + 1) * n)`` of host ``h``'s
+    batch of ``host_rows`` real rows (every host's is as long)."""
+    per, gathered = dist.local_size(cfg), [dist.all_gather(t) for t in state]
+    n = state[0].shape[0]
+    keep = [max(0, min(n, host_rows - (g % per) * n)) for g in range(dist.world_size())]
+    return tuple(torch.cat([t[g, :k] for g, k in enumerate(keep)]) for t in gathered)
 
 
 def _score_state(val_meter, state) -> None:
@@ -47,20 +67,24 @@ def eval_epoch(val_loader, model, eval_step, val_meter, cur_epoch, cfg, device):
     log_period = max(1, cfg.LOG_PERIOD)
     multitask = isinstance(val_meter, EPICValMeter)
     with_state = has_state_head(cfg)
-    # (iteration, accuracies on the card, rows, host times, state inputs or None)
+    ranks = dist.world_size()
+    # (iteration, accuracies on the card, rows, host times, state inputs or None, host rows)
     pending = []
 
     def flush():
         if not pending:
             return
         accs = torch.stack([a for _, a, *_ in pending]).cpu().tolist()
-        for (it, _, rows, times, state), acc in zip(pending, accs):
+        for (it, _, rows, times, state, host_rows), acc in zip(pending, accs):
             if multitask:  # (verb, noun, action) top-1, then top-5
                 val_meter.update_stats(acc[:3], acc[3:], rows)
             else:
                 val_meter.update_stats(100.0 - acc[0], 100.0 - acc[1], rows)
             if state is not None:
-                _score_state(val_meter, state)
+                if ranks > 1:
+                    state = _gather_state(state, host_rows, cfg)
+                if dist.is_primary():
+                    _score_state(val_meter, state)
             val_meter.log_iter_stats(cur_epoch, it, times)
         pending.clear()
 
@@ -70,11 +94,18 @@ def eval_epoch(val_loader, model, eval_step, val_meter, cur_epoch, cfg, device):
         for cur_iter, batch in enumerate(src):
             val_meter.data_toc()
             probs = eval_step(model, batch)
-            accs = torch.stack(_accuracies(probs, batch["labels"], multitask))
+            rows = batch["n_valid"].shape[0]
+            host_rows, n_real = batch.get("host_rows", rows), batch.get("n_real", rows)
+            real = probs[:n_real] if not multitask else [p[:n_real] for p in probs]
+            counts = torch.stack(_correct(
+                real, {k: v[:n_real] for k, v in batch["labels"].items()}, multitask))
+            if ranks > 1:
+                counts = dist.all_reduce_sum(counts)
+                rows = host_rows * int(cfg.NUM_SHARDS)  # every host's batch is as long
+            accs = counts / rows * 100.0
             val_meter.iter_toc()
             state = _state_inputs(probs, batch) if with_state else None
-            pending.append((cur_iter, accs, batch["n_valid"].shape[0], val_meter.iter_times(),
-                            state))
+            pending.append((cur_iter, accs, rows, val_meter.iter_times(), state, host_rows))
             if (cur_iter + 1) % log_period == 0:
                 flush()
             val_meter.iter_tic()
@@ -86,15 +117,15 @@ def eval_epoch(val_loader, model, eval_step, val_meter, cur_epoch, cfg, device):
     return is_best, top1
 
 
-def _accuracies(probs, labels: dict, multitask: bool) -> list:
-    """Top-1 and top-5 accuracies, 0-d tensors on the card: of ``class_id``,
-    or verb, noun and action top-1 then top-5."""
+def _correct(probs, labels: dict, multitask: bool) -> list:
+    """Top-1 and top-5 correct counts, 0-d tensors on the card: of
+    ``class_id``, or verb, noun and action top-1 then top-5."""
     if not multitask:
-        return metrics.topk_accuracies(probs, labels["class_id"], (1, 5))
+        return metrics.topks_correct(probs, labels["class_id"], (1, 5))
     verb, noun = labels["verb"], labels["noun"]
-    v1, v5 = metrics.topk_accuracies(probs[0], verb, (1, 5))
-    n1, n5 = metrics.topk_accuracies(probs[1], noun, (1, 5))
-    a1, a5 = metrics.multitask_topk_accuracies(probs[:2], (verb, noun), (1, 5))
+    v1, v5 = metrics.topks_correct(probs[0], verb, (1, 5))
+    n1, n5 = metrics.topks_correct(probs[1], noun, (1, 5))
+    a1, a5 = metrics.multitask_topks_correct(probs[:2], (verb, noun), (1, 5))
     return [v1, n1, a1, v5, n5, a5]
 
 

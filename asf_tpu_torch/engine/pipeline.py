@@ -24,6 +24,7 @@ import torch
 from ..dsp.logmel import LogMelParams, log_mel_spectrogram
 from ..dsp.pathways import slow_indices
 from ..dsp.specaugment import spec_augment
+from ..parallel import dist
 
 
 def pack_pathways(cfg, spec: torch.Tensor) -> list[torch.Tensor]:
@@ -46,13 +47,16 @@ class InputPipeline:
     """``pipeline(waveform, n_valid[, generator, train]) -> list of (B, 1, T, F)``.
 
     With ``train=True`` and ``GPU.SPEC_AUGMENT``, SpecAugment draws from
-    ``generator`` (a ``torch.Generator`` on the waveform's device).
+    ``generator`` (a ``torch.Generator`` on the waveform's device), for the
+    global batch of the process group it was built in, and applies this
+    rank's rows of the draws.
     """
 
     def __init__(self, cfg, device):
         self.cfg = cfg
         self.params = LogMelParams(cfg, device)
         self.augment = bool(cfg.GPU.SPEC_AUGMENT)
+        self.share = (dist.rank(), dist.world_size())
 
     @torch.no_grad()
     def __call__(self, waveform: torch.Tensor, n_valid: torch.Tensor,
@@ -73,7 +77,7 @@ class InputPipeline:
         if train and self.augment:
             if generator is None:
                 raise ValueError("SpecAugment needs a generator in training")
-            spec = spec_augment(spec, generator)
+            spec = spec_augment(spec, generator, self.share)
         paths = pack_pathways(self.cfg, spec)
         if chains is not None:
             paths = [x.reshape(*chains, *x.shape[1:]) for x in paths]

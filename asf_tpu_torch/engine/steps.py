@@ -24,16 +24,28 @@ returns a new one (donating the old), this step updates ``state.model``,
 ``state.optimizer`` and ``state.step`` in place and returns ``(parts,
 stats)``: loss parts and top-k statistics as 0-d tensors on the device, so
 that the step never waits for the card.
+
+In a process group the forward goes through ``state.ddp``, the
+``DistributedDataParallel`` wrapper of ``state.model``, whose backward
+averages the gradients over the ranks (so the norms read the average), and
+the loss parts and accuracies are averaged over the ranks on the device
+(``state_pred_max_abs`` takes their maximum): the global-batch means that
+the JAX package's one program computes. The state loss, a mean over the
+windows each rank keeps (their number differs between ranks), divides its
+rank's sum by the count over the world over the world size
+(``rank_divisor``), so that both averages give the global mean.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch import nn
 
 from ..models import losses as losses_mod
+from ..parallel import dist
 from . import metrics as metrics_mod
 from .optimizer import construct_optimizer, set_lr
 from .pipeline import make_input_pipeline
@@ -93,6 +105,17 @@ def state_of(preds, lengths=None):
     return x_s, lengths
 
 
+def rank_divisor(count: torch.Tensor) -> torch.Tensor:
+    """The divisor of a masked sum over this rank's rows whose mean over the
+    ranks is the global batch's mean: ``max(count over the world, 1) /
+    world size``, the count summed on the device (one ``all_reduce`` across
+    ranks, none in one process)."""
+    if dist.world_size() == 1:
+        return count.clamp(min=1)
+    total = dist.all_reduce_sum(count.float().reshape(1))[0]
+    return total.clamp(min=1) / dist.world_size()
+
+
 def make_loss_fn(cfg):
     """``compute(preds, labels, lengths=None) -> (total_loss, dict of
     components)``; ``lengths`` (B,) are the chains' (the state head's
@@ -112,7 +135,7 @@ def make_loss_fn(cfg):
             loss_noun = loss_fun(preds[1], labels["noun"])
             state_labels = prepare_state_labels(labels["precs"], labels["posts"], lengths,
                                                 x_s.shape[1])
-            loss_state = losses_mod.state_cross_entropy(x_s, state_labels)
+            loss_state = losses_mod.state_cross_entropy(x_s, state_labels, rank_divisor)
             total = (loss_verb + loss_noun + loss_state) / 3.0
             return total, {"loss": total, "verb_loss": loss_verb, "noun_loss": loss_noun,
                            "state_loss": loss_state}
@@ -159,15 +182,27 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
 
 
+def reduce_over_ranks(values: dict) -> dict:
+    """0-d tensors averaged over the ranks (``state_pred_max_abs``: their
+    maximum), with one ``all_gather`` and no read on the host."""
+    names = list(values)
+    ranks = dist.all_gather(torch.stack([values[k].float() for k in names]))  # (ranks, K)
+    return {k: ranks[:, i].max() if k == "state_pred_max_abs" else ranks[:, i].mean()
+            for i, k in enumerate(names)}
+
+
 @dataclass
 class TrainState:
     """What the step updates in place: the model (parameters and BN
-    statistics), the optimizer, SpecAugment's generator and the step count."""
+    statistics), the optimizer, SpecAugment's generator and the step count;
+    in a process group also ``ddp``, the model's ``DistributedDataParallel``
+    wrapper, which the step's forward goes through."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
     step: int = 0
+    ddp: Optional[nn.Module] = None
 
 
 def init_state(cfg, model: nn.Module) -> TrainState:
@@ -196,9 +231,10 @@ def make_train_step(cfg, device):
 
     def train_step(state: TrainState, batch: dict, lr: float):
         model, optimizer = state.model, state.optimizer
-        model.train()
+        net = model if state.ddp is None else state.ddp
+        net.train()
         paths = pipeline(batch["waveform"], batch["n_valid"], state.generator, train=True)
-        preds = forward(model, paths, batch)
+        preds = forward(net, paths, batch)
         loss, parts = loss_fn(preds, batch["labels"], batch.get("lengths"))
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -207,9 +243,13 @@ def make_train_step(cfg, device):
         params = [p for p in model.parameters() if p.grad is not None]
         with torch.no_grad():
             parts = {k: v.detach() for k, v in parts.items()}
+            stats = device_metrics(preds, batch["labels"])
+            if dist.is_initialized():
+                reduced = reduce_over_ranks({**parts, **stats})
+                parts = {k: reduced[k] for k in parts}
+                stats = {k: reduced[k] for k in stats}
             parts["grad_norm"] = global_norm(p.grad for p in params)
             parts["param_norm"] = global_norm(model.parameters())
-            stats = device_metrics(preds, batch["labels"])
         state.step += 1
         return parts, stats
 

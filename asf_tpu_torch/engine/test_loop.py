@@ -25,6 +25,14 @@ last batch runs with its real rows. The JAX package's padding to a static
 batch (``pad_batch_to``), its K-step ``multi_eval`` and its device store
 (``resolve_offsets``) exist for XLA and the TPU's host link and are not
 ported.
+
+Across ranks (``tools/run_net.py``) every host scores the whole test set,
+as the JAX package's host-local mesh does (``:176-186``): the loader does
+not split it over hosts, each of a host's ``NUM_GPUS`` ranks scores its
+rows of each batch (the last batch padded, as ``pad_batch_to`` pads it),
+the scores, labels, clip ids and metadata are gathered to the host's local
+rank 0 in a per-host group, which keeps the batch's real rows and feeds
+the meter, and only global rank 0 writes the pickle (``:145``).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from ..checkpoint import manager as cu
 from ..data.loader import construct_loader
 from ..data.prefetch import prefetch
 from ..models import build_model
+from ..parallel import dist
 from ..utils.logging import get_logger, setup_logging
 from ..utils.torch_setup import disable_tf32, resolve_device
 from . import metrics
@@ -48,13 +57,29 @@ from .steps import is_multitask, make_eval_step
 logger = get_logger(__name__)
 
 
+def _gather_host(out: list, metadata, host_rows: int, ranks: int):
+    """``out`` (tensors) and ``metadata`` (lists) of every one of this host's
+    ``ranks`` ranks, concatenated in rank order and cut to the batch's
+    ``host_rows`` real rows."""
+    group = dist.host_group(ranks)
+    out = [dist.all_gather(t, group).flatten(0, 1)[:host_rows] for t in out]
+    if metadata:
+        parts = dist.all_gather_object(metadata, group)
+        metadata = {k: [v for m in parts for v in m[k]][:host_rows] for k in metadata}
+    return out, metadata
+
+
 @torch.inference_mode()
 def perform_test(test_loader, model, eval_step, test_meter, device):
     """Scores every batch of ``test_loader``; returns the meter's
     ``finalize_metrics()``: (ensembled scores, labels), and for verb/noun
-    the (verb, noun) pairs of both and the narration ids."""
+    the (verb, noun) pairs of both and the narration ids. When the loader's
+    host batches are shared by more than one rank (``local_size``), the
+    host's local rank 0 returns them, the others None."""
     cuda = torch.device(device).type == "cuda"
     multitask = isinstance(test_meter, (EPICTestMeter, EPICTestMeterSlide))
+    shared = test_loader.local_size > 1
+    lead = test_loader.local_rank == 0
     # (iteration, host times, (probs..., labels..., clip ids) on the host, metadata, event)
     fetches = []
 
@@ -78,21 +103,28 @@ def perform_test(test_loader, model, eval_step, test_meter, device):
             probs = eval_step(model, batch)
             labels = batch["labels"]
             out = ([*probs[:2], labels["verb"], labels["noun"]] if multitask
-                   else [probs, labels["class_id"]])
-            host = [t.to("cpu", non_blocking=True) for t in (*out, batch["index"])]
+                   else [probs, labels["class_id"]]) + [batch["index"]]
+            metadata = batch.get("metadata")
+            if shared:
+                out, metadata = _gather_host(out, metadata, batch["host_rows"],
+                                             test_loader.local_size)
+                if not lead:
+                    test_meter.iter_toc()
+                    test_meter.iter_tic()
+                    continue
+            host = [t.to("cpu", non_blocking=True) for t in out]
             event = None
             if cuda:
                 event = torch.cuda.Event()
                 event.record()
             test_meter.iter_toc()
-            fetches.append((cur_iter, test_meter.iter_times(), host, batch.get("metadata"),
-                            event))
+            fetches.append((cur_iter, test_meter.iter_times(), host, metadata, event))
             apply_ready(block=False)
             test_meter.iter_tic()
         apply_ready(block=True)
     finally:
         src.close()
-    return test_meter.finalize_metrics()
+    return test_meter.finalize_metrics() if lead else None
 
 
 def _save_scores(cfg, results, multitask: bool) -> str:
@@ -123,15 +155,15 @@ def test(cfg, device=None):
     Runs on the current CUDA device unless ``device="cpu"``; raises when
     CUDA is absent and no device was given. Sliding-window testing returns
     the windows scored: ((verb, noun) scores, (verb, noun) labels, narration
-    ids). Raises ``NotImplementedError`` for ``NUM_SHARDS > 1``, which comes
-    with a later slice.
+    ids). With ``NUM_SHARDS > 1`` or ``NUM_GPUS > 1`` it is one rank of a
+    process group that ``run_net`` started, and raises without one; each
+    host's local rank 0 returns the results, the other ranks None.
     """
-    if cfg.NUM_SHARDS > 1 or cfg.NUM_GPUS > 1:
-        raise NotImplementedError(f"NUM_SHARDS = {cfg.NUM_SHARDS}, NUM_GPUS = {cfg.NUM_GPUS}: "
-                                  "test(cfg) runs on one device")
+    dist.check_world(cfg, "test")
     device = resolve_device(device)
     disable_tf32()
-    setup_logging(cfg.OUTPUT_DIR)
+    setup_logging(cfg.OUTPUT_DIR, is_primary=dist.is_primary())
+    dist.check_batch_divisibility(cfg, int(cfg.TEST.BATCH_SIZE), "TEST")
     np.random.seed(cfg.RNG_SEED)
     logger.info("Test with config:\n%s", cfg.to_json())
     multitask = is_multitask(cfg)
@@ -163,7 +195,10 @@ def test(cfg, device=None):
         results = perform_test(test_loader, model, eval_step, meter, device)
     finally:
         test_loader.close()
-    _save_scores(cfg, results, multitask)
+    if results is None:
+        return None
+    if dist.is_primary():
+        _save_scores(cfg, results, multitask)
     if not multitask and not cfg.DATA.MULTI_LABEL and cfg.TEST.DATASET.lower() == "vggsound":
         logger.info("VGG-Sound stats: %s", metrics.vggsound_stats(*results))
     return results

@@ -25,6 +25,15 @@ raises "State looking strange", a state loss of 40 or more the loss alert.
 Without the observers their sink is ``AlertLog``, which logs a warning, as
 the JAX package's ``ScalarLogger.alert`` does without W&B.
 
+In a process group (``tools/run_net.py``; ``parallel/dist.py``) every
+rank trains the same model on its rows of each host batch: the model is
+wrapped in ``DistributedDataParallel`` (``broadcast_buffers=False``: the
+batch-norm statistics are made equal on every rank by the norms
+themselves), the step averages the loss parts and accuracies over the
+ranks on the card, precise BN runs on every rank, and only global rank 0
+logs at INFO and writes checkpoints, each followed by a barrier so that
+every rank finds the file an auto-resume reads.
+
 Not ported here: the observers (TensorBoard, W&B), the AOT warm-up, the
 device store, the profiler window and the K-step dispatch.
 """
@@ -37,11 +46,13 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
 from ..checkpoint import manager as cu
 from ..data.loader import construct_loader, shuffle_dataset
 from ..data.prefetch import prefetch
 from ..models import build_model
+from ..parallel import dist
 from ..utils import lr_policy
 from ..utils.logging import get_logger, setup_logging
 from ..utils.misc import log_model_info
@@ -147,8 +158,9 @@ def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, de
             parts, stats = train_step(state, batch, lr)
             values = torch.stack([{**parts, **stats}[k] for k in names])
             train_meter.iter_toc()
-            pending.append((cur_iter, lr, batch["waveform"].shape[0], train_meter.iter_times(),
-                            values))
+            # the global batch's rows, as the JAX package's meter counts them
+            pending.append((cur_iter, lr, batch["waveform"].shape[0] * dist.world_size(),
+                            train_meter.iter_times(), values))
             if len(pending) >= log_period:
                 flush()
             train_meter.iter_tic()
@@ -168,7 +180,8 @@ def precise_bn(cfg, state, loader, pipeline, device, num_iters: int) -> None:
     momentum-1 average computes (:284-342). ``BN.FREEZE`` is lifted for the
     pass; the momenta and the freeze are restored after it. A batch of
     window chains counts its padded windows too, as the JAX package's
-    bucketed batches do."""
+    bucketed batches do. Across ranks every rank runs the same batches,
+    its rows of each, and its norms take their statistics over the ranks."""
     if num_iters <= 0:
         return
     model, forward = state.model, apply_model(cfg)
@@ -197,8 +210,11 @@ def build_train_meter(cfg, epoch_iters: int):
     return TrainMeter(epoch_iters, cfg)
 
 
-def _epoch_seed(seed: int, epoch: int) -> int:
-    return int(np.random.SeedSequence([int(seed), int(epoch)]).generate_state(1)[0])
+def _epoch_seed(seed: int, epoch: int, rank: int = 0) -> int:
+    """The global generators' seed of ``epoch`` on global rank ``rank``
+    (rank 0's is the seed of a run without ranks)."""
+    key = [int(seed), int(epoch)] + ([int(rank)] if rank else [])
+    return int(np.random.SeedSequence(key).generate_state(1)[0])
 
 
 def train(cfg, device=None):
@@ -206,23 +222,21 @@ def train(cfg, device=None):
     ``steps.TrainState``.
 
     Runs on the current CUDA device unless ``device="cpu"``; raises when
-    CUDA is absent and no device was given, and when ``NUM_SHARDS > 1``
-    (data parallel across processes is not ported). Weights are drawn from
-    ``torch.Generator().manual_seed(cfg.RNG_SEED)``, SpecAugment's generator
-    is seeded with ``RNG_SEED``, and the global generators (the head's
-    dropout) are seeded from ``(RNG_SEED, epoch)`` at each epoch, so that a
-    resumed run repeats the epochs of an uninterrupted one.
+    CUDA is absent and no device was given. With ``NUM_SHARDS > 1`` or
+    ``NUM_GPUS > 1`` it is one rank of a process group that ``run_net``
+    started (``tools/run_net.py:launch_job``), and raises without one.
+    Weights are drawn from ``torch.Generator().manual_seed(cfg.RNG_SEED)``,
+    SpecAugment's generator is seeded with ``RNG_SEED`` (on every rank),
+    and the global generators (the head's dropout) are seeded from
+    ``(RNG_SEED, epoch, global rank)`` at each epoch, so that a resumed run
+    repeats the epochs of an uninterrupted one.
     """
-    if cfg.NUM_SHARDS > 1 or cfg.NUM_GPUS > 1:
-        # The loader would split the data by SHARD_ID and the LR would scale
-        # by NUM_SHARDS, but there is no process group and no gradient
-        # all-reduce yet: each process would train alone on its share.
-        raise NotImplementedError(
-            f"NUM_SHARDS = {cfg.NUM_SHARDS}, NUM_GPUS = {cfg.NUM_GPUS}: train(cfg) runs on "
-            "one device")
+    dist.check_world(cfg, "train")
     device = resolve_device(device)
     disable_tf32()
-    setup_logging(cfg.OUTPUT_DIR)
+    setup_logging(cfg.OUTPUT_DIR, is_primary=dist.is_primary())
+    dist.check_sync_bn_mesh(cfg)
+    dist.check_batch_divisibility(cfg, int(cfg.TRAIN.BATCH_SIZE), "TRAIN")
     for node in ("TENSORBOARD", "WANDB"):
         if cfg[node].ENABLE:
             logger.warning("%s.ENABLE: the observers are not ported; training goes on "
@@ -236,6 +250,10 @@ def train(cfg, device=None):
     if cfg.LOG_MODEL_INFO:
         log_model_info(model)
     start_epoch = cu.load_train_checkpoint(cfg, state)
+    if dist.is_initialized():
+        state.ddp = DistributedDataParallel(
+            model, device_ids=[device.index] if device.type == "cuda" else None,
+            broadcast_buffers=False)
 
     plus_val = (cfg.TRAIN.DATASET.lower().startswith("epickitchens")
                 and cfg.EPICKITCHENS.TRAIN_PLUS_VAL)
@@ -250,7 +268,7 @@ def train(cfg, device=None):
     try:
         for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
             shuffle_dataset(train_loader, cur_epoch)
-            torch.manual_seed(_epoch_seed(cfg.RNG_SEED, cur_epoch))
+            torch.manual_seed(_epoch_seed(cfg.RNG_SEED, cur_epoch, dist.rank()))
             train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, device)
             if cfg.BN.USE_PRECISE_STATS:
                 precise_bn(cfg, state, train_loader, train_step.pipeline, device,

@@ -50,14 +50,19 @@ def masked_loss(preds: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return 0.5 * (bce_term + mse_term)
 
 
-def state_cross_entropy(preds: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def state_cross_entropy(preds: torch.Tensor, labels: torch.Tensor,
+                        divisor=None) -> torch.Tensor:
     """(B, N, P, 3) logits against one-hot labels whose padded windows are -1:
-    CE over the class axis, kept where the label vector holds no -1."""
+    CE over the class axis, kept where the label vector holds no -1, summed
+    and divided by ``divisor(count of kept entries)``; by default the count
+    itself, at least 1."""
     preds = preds.float()
     labels = labels.float()
     keep = (labels != -1.0).all(dim=-1)
     ce = -(labels * torch.log_softmax(preds, dim=-1)).sum(dim=-1)
-    return torch.where(keep, ce, 0.0).sum() / keep.sum().clamp(min=1)
+    count = keep.sum()
+    return torch.where(keep, ce, 0.0).sum() / (count.clamp(min=1) if divisor is None
+                                               else divisor(count))
 
 
 _LOSSES = {

@@ -4,7 +4,8 @@ Copy of ``asf_tpu/utils/parser.py``: ``--shard_id``, ``--num_shards``,
 ``--init_method``, ``--cfg`` and trailing ``KEY VALUE`` overrides, merged as
 defaults, then the config file (YAML through ``config/yaml_lite.py``, or
 JSON), then the overrides (``merge_from_list``). The port adds
-``--device``: the current CUDA device unless it says ``cpu``.
+``--device``: the current CUDA device (each rank its own card, over NCCL)
+unless it says ``cpu`` (ranks over gloo).
 """
 
 import argparse

@@ -2,7 +2,8 @@
 
 Counterpart of ``asf_tpu/utils/jax_setup.py``. The port never falls back
 to the CPU on its own: with no CUDA device an entry point raises unless
-its caller asked for ``device="cpu"``.
+its caller asked for ``device="cpu"``. A rank of a process group runs on
+``cuda:local_rank`` (``rank_device``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,15 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def rank_device(device, local_rank: int) -> torch.device:
+    """The device of local rank ``local_rank``: ``cuda:local_rank`` for None
+    or "cuda", the CPU for "cpu", an indexed device as it is."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", local_rank)
+    return resolve_device(dev)
 
 
 def disable_tf32() -> None:

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Eleven phases, each of which raises on a
+Run from the root of a checkout. Twelve phases, each of which raises on a
 failed check (the script then exits non-zero and prints no result):
 
 1. Device and build: needs a CUDA device; prints the card's name and power
@@ -184,7 +184,35 @@ failed check (the script then exits non-zero and prints no result):
    paths, the checkpoint, ``TRAIN.ENABLE False`` and phase 7's trunk as
    overrides) must give the in-process scores within ``CLI_TOL``. Prints
    ms per test iteration, windows/s and the first batch's wait.
-11. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
+11. Batch-norm types and ranks. One process: 3 train steps of the flagship
+   at B = 64 (``train_entry``, bf16) with ``batchnorm`` and with each of
+   ``sub_batchnorm`` S = 2 and 4 and ``sync_batchnorm`` (world size 1, the
+   biased running variance): every norm is of the type asked, each
+   ``logmel_bf16`` launch counted, and in the first step every grouped
+   norm's output and running statistics are held to float64 of the same
+   function of its captured input (``BN_OUT_TOL``, ``BN_STAT_TOL``); ms a
+   step of each type beside ``batchnorm``'s, and the sync debug mode's list
+   for the ``batchnorm`` step. NCCL at world size 1: phase 5's first run,
+   one epoch in a process group started through the port's per-rank entry
+   (``tools/run_net.py:run_rank``, ``backend="nccl"``): the model wrapped in
+   ``DistributedDataParallel``, the port's collectives issued, 7 launches,
+   its losses and final model within ``DDP_TOL`` of phase 5's run without a
+   group, and a step through the wrapper with no synchronizing call that
+   the step without a group lacks. Two gloo ranks on ``cuda:0`` (spawned,
+   ``run_rank`` with ``backend="gloo"``), float32 with TF32 off, dropout
+   off, LR 1e-3: one ``train(cfg)`` epoch of one step at a global B = 64
+   (the first 64 clips of phase 5's set; the running statistics take the
+   step's batch statistics whole, no precise BN; then val on phase 5's
+   64 + 32) with ``batchnorm`` against one process with
+   ``batchnorm``, and with ``sync_batchnorm`` k = 1 against one process with
+   ``sub_batchnorm`` S = 2 (running variances rescaled by n/(n-1), n a
+   split's count): the loss, the step's update of the parameters together
+   and the running statistics together (``GLOO_*_TOL``: a float32 step at
+   the random start is itself 1.6 % from float64, and later steps grow any
+   such gap); each rank launches ``logmel_bf16`` 3 times a run; then a
+   two-rank ``test(cfg)`` of phase 6's set writes one pickle whose scores
+   lie within ``GLOO_SCORE_TOL`` of one process's (5 launches a rank).
+12. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
    both above the card's float32 CUDA-core peak at their main-path shapes
    (``logmel_bf16`` flagship at B = 64 and 128, ``logmel_bf16_wide`` at
    B = 64); no ``HGMMA`` and no ``HMMA`` in the SASS of ``logmel_f32``'s
@@ -192,7 +220,7 @@ failed check (the script then exits non-zero and prints no result):
    slices, so that a run against an older tree of the kernels (a
    parent-versus-change comparison) still prints all its times before it
    fails.
-12. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+13. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -313,6 +341,55 @@ GRU_RAGGED = 8  # chains in the last val and test batches
 # window keeps.
 SLIDE_DURATIONS = "EPIC_100_video_info.csv"
 SLIDE_OVERLAP = 4
+# Phase 11: train steps of each grouped batch-norm type in one process at
+# B = TRAIN_BATCH, the first held to float64.
+BN_TYPES = (("sub_batchnorm", 2), ("sub_batchnorm", 4), ("sync_batchnorm", 1))
+BN_STEPS = 3
+# A norm's bf16 output against float64 of the same function of its captured
+# input: half a bf16 ulp (up to 2**-8 of the value) plus the float32
+# statistics' error (1e-5 of the value, 1e-4 near 0).
+BN_OUT_TOL = (2.0 ** -8 + 1e-5, 1e-4)
+# Its running statistics after the step against the float64 update: float32
+# statistics of up to 2M values a channel, then one float32 rounding.
+BN_STAT_TOL = (1e-5, 1e-6)
+# NCCL at world size 1 against phase 5's first run without a group (the same
+# batches, seeds and bf16 trunk; cuDNN may sum in another order): each
+# train_iter loss (absolute) and each leaf (relative L2).
+DDP_TOL = 1e-2
+# Two gloo ranks on the one card against one process, float32 with TF32 off,
+# over an epoch of one step (the first TRAIN_BATCH clips of phase 5's list),
+# the running statistics taking each step's batch statistics whole
+# (BN.MOMENTUM_OVERRIDE 1) and no precise BN (it would read them off models
+# that one step has already parted). On an H100, ``python -m
+# asf_tpu_torch.tools.step_noise`` finds a float32 step of the flagship at its
+# random start 1.6 % (its whole gradient) from float64, the two-rank step as
+# far, and later steps growing any gap (one process against itself under
+# other cuDNN algorithms: 8e-6 after one step, 0.2 after three; two ranks
+# 0.02, then 0.7). So the gate holds the
+# one step: its loss (relative), its update of the parameters together
+# (relative L2, 3 x the float32 noise of a step), and the running means and
+# variances it left (each kind together, relative L2); a wrong split or
+# gradient average moves these by 1-100 %. Then the test scores of one set
+# of weights (max abs).
+GLOO_RANKS, GLOO_SCORE_TOL, GLOO_TRAIN_LIST = 2, 1e-4, "train_one_step.pkl"
+GLOO_UPDATE_TOL, GLOO_LOSS_TOL, GLOO_STAT_TOL = 0.05, 1e-5, 1e-5
+# The same two ranks, then one process, take one train step of the flagship
+# in float64 on the same front-end output of the TRAIN_BATCH clips of
+# ``_example`` (dropout and SpecAugment off, ``batchnorm``: the grouped norm
+# over the two ranks against ``nn.BatchNorm2d``): the ranks' averaged
+# gradients (every parameter together and each alone, relative L2), the
+# running statistics after the step (each kind together) and the loss
+# (relative) within GLOO_F64_TOL. Float64 on the same bits leaves only
+# rounding between the two (1.5e-13 on an H100), so a wrong row split, norm
+# group, loss mean or gradient average shows orders of magnitude above this
+# bound. A rank's own float32 front end (its K1 launch at 32 rows, its
+# share of SpecAugment's draws) differs from the host batch's rows in the
+# last bits of a log-mel (4.8e-7 there; GLOO_FRONT_TOL, max abs), which
+# this step, at its random start, turns into 0.3 % of the float64 gradient:
+# the float32 gaps above are that sensitivity, not the split.
+GLOO_F64_TOL, GLOO_FRONT_TOL = 1e-9, 1e-5
+# logmel_bf16 launches a rank in that epoch: 1 train, 2 val.
+GLOO_LAUNCHES = 3
 
 
 def check(ok: bool, msg: str) -> None:
@@ -850,8 +927,8 @@ def check_prefetch(cfg) -> None:
 
 def phase_train_cfg(card: str, step_ms: float, root: str):
     """Phase 5: ``train(cfg)`` twice in ``root``, the second resuming the
-    first; returns the launch counts of both runs together and the config
-    (its ``OUTPUT_DIR`` holds the checkpoints)."""
+    first; returns the launch counts of both runs together, the config (its
+    ``OUTPUT_DIR`` holds the checkpoints) and run 1's ``train_iter`` losses."""
     from asf_tpu_torch.checkpoint import manager as cu
     from asf_tpu_torch.engine import train
     from asf_tpu_torch.entry import flagship_cfg
@@ -894,6 +971,8 @@ def phase_train_cfg(card: str, step_ms: float, root: str):
                 launches[name] += n
             iters = stats.of("train_iter", since)
             epochs = stats.of("train_epoch", since)
+            if run == 1:
+                run1_losses = [r["loss"] for r in iters]
             check(len(epochs) == 1, f"run {run} logged {len(epochs)} train epochs")
             # The epoch's record follows the flush that waits for its last step.
             walls.append((wall, epochs[0]["_at"] - stats.starts[-1]))
@@ -960,7 +1039,7 @@ def phase_train_cfg(card: str, step_ms: float, root: str):
           f"{[round(w, 2) for w, _ in walls]}; train_entry at B={TRAIN_BATCH} (phase 4): "
           f"{step_ms:.3f} ms per step; loop / train_entry {it_ms / step_ms:.3f} (3-step epochs: "
           f"not a steady state) | {card}", flush=True)
-    return launches, cfg
+    return launches, cfg, run1_losses
 
 
 def _device_fds(pid: int) -> int:
@@ -2247,6 +2326,496 @@ def phase_slide(card: str, epic_ckpt: str, root: str) -> dict:
     return launches
 
 
+def free_port() -> int:
+    """A free TCP port on this host, for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+def bn_float64_hooks(model, found: list) -> list:
+    """Hooks on every live ``GroupedBatchNorm2d`` of ``model`` (one process)
+    that hold its output and running statistics to float64 of the same
+    function of the input it was given: each forward appends (name, output
+    ratio, statistics ratio) to ``found``, a ratio the largest |error| over
+    its bound (``BN_OUT_TOL``, ``BN_STAT_TOL``), so 1 is the bound."""
+    from asf_tpu_torch.models.norm import GroupedBatchNorm2d
+
+    def before(mod, inp):
+        mod.smoke_before = (mod.running_mean.double(), mod.running_var.double())
+
+    def after(name):
+        def hook(mod, inp, out):
+            x = inp[0].detach().double()
+            xs = x.reshape(mod.num_splits, x.shape[0] // mod.num_splits, x.shape[1], -1)
+            mean, var = xs.mean(dim=(1, 3)), xs.var(dim=(1, 3), unbiased=False)
+            y = ((xs - mean[:, None, :, None]) * torch.rsqrt(var[:, None, :, None] + mod.eps)
+                 * mod.weight.double()[:, None] + mod.bias.double()[:, None]).reshape(x.shape)
+            out_ratio = ((out.double() - y).abs()
+                         / (BN_OUT_TOL[0] * y.abs() + BN_OUT_TOL[1])).max().item()
+            agg_mean = mean.mean(dim=0)
+            agg_var = var.mean(dim=0) + ((mean - agg_mean) ** 2).mean(dim=0)
+            if mod.unbiased_running:
+                n = xs.shape[1] * xs.shape[3]
+                agg_var = agg_var * n / (n - 1)
+            m, stat_ratio = mod.momentum, 0.0
+            for got, old, stat in ((mod.running_mean, mod.smoke_before[0], agg_mean),
+                                   (mod.running_var, mod.smoke_before[1], agg_var)):
+                want = (1 - m) * old + m * stat
+                stat_ratio = max(stat_ratio, ((got.double() - want).abs()
+                                              / (BN_STAT_TOL[0] * want.abs() + BN_STAT_TOL[1]))
+                                 .max().item())
+            found.append((name, out_ratio, stat_ratio))
+        return hook
+
+    handles = []
+    for name, mod in model.named_modules():
+        if isinstance(mod, GroupedBatchNorm2d) and not mod.stats_frozen:
+            handles += [mod.register_forward_pre_hook(before),
+                        mod.register_forward_hook(after(name))]
+    return handles
+
+
+def phase_bn_types(card: str) -> tuple[dict, dict, list]:
+    """Phase 11, one process: ``BN_STEPS`` train steps of the flagship at
+    B = ``TRAIN_BATCH`` (``train_entry``, bf16) with each of ``batchnorm``
+    and ``BN_TYPES``; the first step of a grouped type holds every norm to
+    float64. Returns the launch counts, ms a step of each type, and the sync
+    debug mode's list for the ``batchnorm`` step."""
+    from asf_tpu_torch.entry import flagship_cfg, train_entry
+    from asf_tpu_torch.models.norm import BatchNorm2d, GroupedBatchNorm2d
+    from asf_tpu_torch.utils.lr_policy import get_lr_at_epoch
+
+    launches, ms, plain_sync = {}, {}, []
+    for norm_type, splits in (("batchnorm", 1), *BN_TYPES):
+        label = f"{norm_type} S={splits}" if norm_type == "sub_batchnorm" else norm_type
+        cfg = flagship_cfg()
+        cfg.BN.NORM_TYPE, cfg.BN.NUM_SPLITS = norm_type, splits
+        torch.manual_seed(0)
+        step, (state, example) = train_entry(batch=TRAIN_BATCH, cfg=cfg)
+        want = BatchNorm2d if norm_type == "batchnorm" else GroupedBatchNorm2d
+        kinds = {type(m).__name__ for m in state.model.modules()
+                 if isinstance(m, torch.nn.BatchNorm2d)}
+        check(kinds == {want.__name__}, f"[bn] {label}: norms {kinds}")
+        lr = get_lr_at_epoch(step.pipeline.cfg, 200.0)
+        found = []
+        hooks = bn_float64_hooks(state.model, found)
+        torch.cuda.synchronize()
+        zero_launches()
+        losses = []
+        for i in range(BN_STEPS):
+            losses.append(step(state, example, lr)[0]["loss"])
+            if i == 0:
+                for h in hooks:
+                    h.remove()
+        torch.cuda.synchronize()
+        launches[label] = read_launches()
+        losses = [v.item() for v in losses]
+        check(launches[label] == {k: (BN_STEPS if k == "logmel_bf16" else 0) for k in REPLACES},
+              f"[bn] {label}: launches {launches[label]}")
+        check(all(math.isfinite(v) and v > 0 for v in losses), f"[bn] {label}: losses {losses}")
+        if want is GroupedBatchNorm2d:
+            n_live = sum(isinstance(m, GroupedBatchNorm2d) for m in state.model.modules())
+            worst_out = max(found, key=lambda f: f[1])
+            worst_stat = max(found, key=lambda f: f[2])
+            print(f"[bn] {label}: {len(found)} of {n_live} norms held to float64 on their "
+                  f"captured inputs in step 1: worst output {worst_out[1]:.3f} of its bound "
+                  f"({worst_out[0]}), worst running statistic {worst_stat[2]:.3f} of its bound "
+                  f"({worst_stat[0]})", flush=True)
+            check(len(found) == n_live and worst_out[1] <= 1.0 and worst_stat[2] <= 1.0,
+                  f"[bn] {label}: {len(found)} of {n_live} norms checked, output "
+                  f"{worst_out}, statistics {worst_stat} (1 is the bound)")
+        ms[label] = cuda_ms(lambda: step(state, example, lr), reps=5, warmup=1, runs=3)
+        if norm_type == "batchnorm":
+            plain_sync = sync_calls(lambda: step(state, example, lr))
+        print(f"[bn] {label}: losses {[round(v, 4) for v in losses]}, {ms[label]:.3f} ms a step "
+              f"at B={TRAIN_BATCH} (bf16 flagship, {ms[label] / ms['batchnorm']:.3f} x "
+              f"batchnorm's) | {card}", flush=True)
+        del step, state, example
+    return launches, ms, plain_sync
+
+
+def _example(cfg, device) -> dict:
+    """A seeded VGG-Sound batch of ``TRAIN_BATCH`` clips on ``device``."""
+    from asf_tpu_torch.entry import clip_samples
+
+    s, rng = clip_samples(cfg), np.random.default_rng(3)
+    return {"waveform": torch.from_numpy(
+                rng.standard_normal((TRAIN_BATCH, s)).astype(np.float32) * 0.1).to(device),
+            "n_valid": torch.full((TRAIN_BATCH,), s, dtype=torch.int32, device=device),
+            "labels": {"class_id": torch.from_numpy(
+                rng.integers(0, cfg.MODEL.NUM_CLASSES[0], TRAIN_BATCH)).to(device)}}
+
+
+def nccl_rank(cfg, device) -> dict:
+    """Phase 11's NCCL rank (world size 1): ``train(cfg)``, its launches, the
+    collectives issued, the model after it, then one more step of the
+    trained state (through its wrapper) under the sync debug mode."""
+    from asf_tpu_torch.engine import train
+    from asf_tpu_torch.engine.steps import make_train_step
+    from asf_tpu_torch.parallel import dist
+    from asf_tpu_torch.tools.loop_probe import StatsLog
+
+    dist.CALLS.clear()
+    with StatsLog() as stats:
+        torch.cuda.synchronize()
+        zero_launches()
+        state = train(cfg, device=device)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    calls = dict(dist.CALLS)
+    model = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    step, example = make_train_step(cfg, device), _example(cfg, device)
+    step(state, example, 0.01)
+    return {"launches": launches, "calls": calls, "wrapper": type(state.ddp).__name__,
+            "model": model, "losses": [r["loss"] for r in stats.of("train_iter")],
+            "sync": sync_calls(lambda: step(state, example, 0.01)), "step": state.step}
+
+
+def float64_step(ranks: int, device) -> dict:
+    """One train step of the flagship in float64 (dropout and SpecAugment
+    off, ``batchnorm``) on this rank's rows of ``_example``'s clips, through
+    ``DistributedDataParallel`` in a process group of ``ranks``, with the
+    step's loss (``steps.make_loss_fn``): the loss (averaged over the
+    ranks), the gradients (their average) and the running statistics after
+    the step, on the host. Every rank runs the front end on the whole host
+    batch and keeps its rows, so that both sides feed the model the same
+    bits (a rank's own launch at 32 rows differs in the last bits,
+    ``rank_front_end``)."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    from asf_tpu_torch.engine.pipeline import make_input_pipeline
+    from asf_tpu_torch.engine.steps import make_loss_fn, reduce_over_ranks
+    from asf_tpu_torch.entry import flagship_cfg
+    from asf_tpu_torch.models import build_model
+    from asf_tpu_torch.parallel import dist
+
+    cfg = flagship_cfg()
+    cfg.NUM_GPUS = ranks
+    cfg.GPU.COMPUTE_DTYPE = "float32"
+    cfg.GPU.SPEC_AUGMENT = False
+    cfg.MODEL.DROPOUT_RATE = 0.0
+    model = build_model(cfg, device, torch.Generator().manual_seed(cfg.RNG_SEED)).double()
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float64
+    net = model.train()
+    if dist.is_initialized():
+        net = DistributedDataParallel(model, device_ids=[device.index], broadcast_buffers=False)
+    lo, hi = dist.host_rows(dist.local_rank(cfg), dist.local_size(cfg), TRAIN_BATCH)
+    ex = _example(cfg, device)
+    paths = [p[lo:hi] for p in make_input_pipeline(cfg, device)(ex["waveform"], ex["n_valid"])]
+    loss, _ = make_loss_fn(cfg)(net(paths), {"class_id": ex["labels"]["class_id"][lo:hi]})
+    loss.backward()
+    if dist.is_initialized():
+        loss = reduce_over_ranks({"loss": loss.detach()})["loss"]
+    return {"loss": loss.item(),
+            "grads": {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+            "stats": {k: v.detach().cpu() for k, v in model.named_buffers()
+                      if k.endswith(("running_mean", "running_var"))},
+            "norms": sorted({type(m).__name__ for m in model.modules()
+                             if isinstance(m, torch.nn.BatchNorm2d)})}
+
+
+def rank_front_end(device) -> dict:
+    """The float32 front end (``logmel_f32``) of this rank's rows (its own
+    launch at 32 rows, and SpecAugment with this rank's share of the host
+    draws) against the same rows of one launch over the host batch (one
+    process's draws): the largest |difference| with and without
+    SpecAugment, on the host."""
+    from asf_tpu_torch.engine.pipeline import make_input_pipeline
+    from asf_tpu_torch.entry import flagship_cfg
+    from asf_tpu_torch.parallel import dist
+
+    cfg = flagship_cfg()
+    cfg.NUM_GPUS = GLOO_RANKS
+    lo, hi = dist.host_rows(dist.local_rank(cfg), dist.local_size(cfg), TRAIN_BATCH)
+    ex = _example(cfg, device)
+    mine, host = make_input_pipeline(cfg, device), make_input_pipeline(cfg, device)
+    host.share = (0, 1)  # one process's draws for the whole host batch
+    out = {}
+    for train in (False, True):
+        got = mine(ex["waveform"][lo:hi], ex["n_valid"][lo:hi],
+                   torch.Generator(device=device).manual_seed(cfg.RNG_SEED), train=train)
+        want = host(ex["waveform"], ex["n_valid"],
+                    torch.Generator(device=device).manual_seed(cfg.RNG_SEED), train=train)
+        out["specaugment" if train else "plain"] = max(
+            (g - w[lo:hi]).abs().max().item() for g, w in zip(got, want))
+    return out
+
+
+def gloo_rank(cfg, device) -> None:
+    """A rank of phase 11's gloo pair on the one card: one ``train(cfg)``
+    epoch with ``batchnorm`` and one with ``sync_batchnorm`` at k = 1, then
+    ``test(cfg)`` of the first's checkpoint, then ``rank_front_end`` and
+    ``float64_step``; writes its launches, losses and roles to
+    ``OUTPUT_DIR/rank<r>.json`` and rank 0 the float64 step to
+    ``OUTPUT_DIR/float64.pt``."""
+    from asf_tpu_torch.engine import test, train
+    from asf_tpu_torch.parallel import dist
+    from asf_tpu_torch.tools.loop_probe import StatsLog
+
+    out = {}
+    for norm_type in ("batchnorm", "sync_batchnorm"):
+        run = cfg.clone()
+        run.BN.NORM_TYPE = norm_type
+        run.OUTPUT_DIR = os.path.join(cfg.OUTPUT_DIR, norm_type)
+        with StatsLog() as stats:
+            zero_launches()
+            state = train(run, device=device)
+            torch.cuda.synchronize()
+            counts = read_launches()
+        out[norm_type] = {
+            "launches": counts, "losses": [r["loss"] for r in stats.of("train_iter")],
+            "wrapper": type(state.ddp).__name__, "step": state.step,
+            "norms": sorted({type(m).__name__ for m in state.model.modules()
+                             if isinstance(m, torch.nn.BatchNorm2d)})}
+        del state
+    run = cfg.clone()
+    run.OUTPUT_DIR = os.path.join(cfg.OUTPUT_DIR, "batchnorm")
+    zero_launches()
+    result = test(run, device=device)
+    torch.cuda.synchronize()
+    out["test"] = {"launches": read_launches(), "lead": result is not None}
+    zero_launches()
+    front = rank_front_end(device)
+    f64 = float64_step(GLOO_RANKS, device)
+    torch.cuda.synchronize()
+    out["float64"] = {"launches": read_launches(), "front_end": front}
+    if dist.rank() == 0:
+        torch.save(f64, os.path.join(cfg.OUTPUT_DIR, "float64.pt"))
+    del f64
+    with open(os.path.join(cfg.OUTPUT_DIR, f"rank{dist.rank()}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _positions(cfg) -> dict:
+    """Each norm's input positions (frames x frequencies) in ``cfg``'s model."""
+    from asf_tpu_torch.engine.pipeline import make_input_pipeline
+    from asf_tpu_torch.models import build_model
+
+    model, found = build_model(cfg), {}
+    device = next(model.parameters()).device
+
+    def keep(name):
+        def hook(mod, inp, out):
+            found[name] = inp[0].shape[2] * inp[0].shape[3]
+        return hook
+
+    hooks = [m.register_forward_hook(keep(name)) for name, m in model.named_modules()
+             if isinstance(m, torch.nn.BatchNorm2d)]
+    ex = _example(cfg, device)
+    with torch.no_grad():
+        model.eval()(make_input_pipeline(cfg, device)(ex["waveform"][:2], ex["n_valid"][:2]))
+    for h in hooks:
+        h.remove()
+    return found
+
+
+def phase_ranks(card: str, loop_cfg, run1_losses: list, plain_sync: list) -> dict:
+    """Phase 11, across processes: NCCL at world size 1 through the port's
+    per-rank entry, against phase 5's first run; then two gloo ranks on the
+    one card against one process. Returns the launch counts by path."""
+    from asf_tpu_torch.checkpoint import manager as cu
+    from asf_tpu_torch.engine import test, train
+    from asf_tpu_torch.models import build_model
+    from asf_tpu_torch.tools.loop_probe import StatsLog
+    from asf_tpu_torch.tools.run_net import run_rank
+
+    root = os.path.dirname(loop_cfg.OUTPUT_DIR)
+    paths = {}
+
+    # NCCL at world size 1: phase 5's first run, in a process group.
+    cfg = loop_cfg.clone()
+    cfg.OUTPUT_DIR = os.path.join(root, "nccl")
+    cfg.SOLVER.MAX_EPOCH = 1
+    cfg.DATA_LOADER.NUM_WORKERS = 0  # the same batches bit for bit, no workers to start
+    t0 = time.perf_counter()
+    res = run_rank(0, cfg, f"tcp://localhost:{free_port()}", nccl_rank, "cuda:0", "nccl")
+    wall = time.perf_counter() - t0
+    paths["nccl train(cfg)"] = res["launches"]
+    want = {name: (EPOCH_LAUNCHES if name == "logmel_bf16" else 0) for name in REPLACES}
+    check(res["launches"] == want, f"[ranks] nccl: launches {res['launches']}, expected {want}")
+    check(res["wrapper"] == "DistributedDataParallel", f"[ranks] nccl: wrapper {res['wrapper']}")
+    check(res["calls"].get("all_gather", 0) >= 3 and res["calls"].get("barrier", 0) >= 1,
+          f"[ranks] nccl: collectives {res['calls']} (a step's all_gather, a save's barrier)")
+    ref = cu.load_checkpoint(os.path.join(loop_cfg.OUTPUT_DIR, "checkpoints",
+                                          "checkpoint_epoch_00001.pyth"))["model_state"]
+    worst = max(((k, _rel_l2(v, ref[k])) for k, v in res["model"].items()
+                 if not k.endswith("num_batches_tracked")), key=lambda kv: kv[1])
+    identical = sum(torch.equal(v, ref[k]) for k, v in res["model"].items())
+    loss_diff = max(abs(a - b) for a, b in zip(res["losses"], run1_losses))
+    extra = sorted(set(res["sync"]) - set(plain_sync))
+    print(f"[ranks] NCCL world size 1 (run_rank, DistributedDataParallel): train(cfg) of phase "
+          f"5's run 1 in {wall:.1f} s, collectives {res['calls']}; losses {res['losses']} against "
+          f"{run1_losses} (max diff {loss_diff:.3g}); {identical} of {len(ref)} tensors equal "
+          f"bit for bit, worst leaf {worst[0]} at {worst[1]:.3g} relative L2; synchronizing "
+          f"calls of a step through the wrapper {res['sync']}, of phase 11's step without a "
+          f"group {plain_sync} | {card}", flush=True)
+    check(len(res["losses"]) == len(run1_losses) == 3 and loss_diff <= DDP_TOL,
+          f"[ranks] nccl: losses {res['losses']} against phase 5's {run1_losses}")
+    check(worst[1] <= DDP_TOL, f"[ranks] nccl: leaf {worst[0]} {worst[1]:.3g} from phase 5's")
+    check(not extra, f"[ranks] nccl: the step through the wrapper waits for the card at {extra}")
+    del res
+
+    # Two gloo ranks on the one card, float32 with TF32 off, against one process.
+    cfg = loop_cfg.clone()
+    cfg.GPU.COMPUTE_DTYPE = "float32"
+    cfg.MODEL.DROPOUT_RATE = 0.0  # each rank draws its own dropout: off for the comparison
+    # Phase 5's LR (0.1 at 309 random classes) takes the loss from 6 to 19 in
+    # one step; a small one keeps val on a model near its start.
+    cfg.SOLVER.BASE_LR = 1e-3
+    cfg.BN.MOMENTUM_OVERRIDE = 1.0
+    cfg.BN.USE_PRECISE_STATS = False
+    with open(os.path.join(root, cfg.VGGSOUND.TRAIN_LIST), "rb") as f:
+        one_step = pickle.load(f)[:TRAIN_BATCH]
+    with open(os.path.join(root, GLOO_TRAIN_LIST), "wb") as f:
+        pickle.dump(one_step, f)
+    cfg.VGGSOUND.TRAIN_LIST = GLOO_TRAIN_LIST
+    cfg.SOLVER.MAX_EPOCH = 1
+    cfg.DATA_LOADER.NUM_WORKERS = 0
+    cfg.BN.NUM_SYNC_DEVICES = 1
+    cfg.NUM_GPUS = GLOO_RANKS
+    cfg.VGGSOUND.TEST_LIST = "test.pkl"  # phase 6's set
+    cfg.TEST.NUM_ENSEMBLE_VIEWS, cfg.TEST.BATCH_SIZE = TEST_VIEWS, TEST_BATCH
+    cfg.TEST.SAVE_RESULTS_PATH = "gloo_scores.pkl"
+    cfg.OUTPUT_DIR = os.path.join(root, "gloo")
+    os.makedirs(cfg.OUTPUT_DIR)
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        run_rank, args=(cfg, f"tcp://localhost:{free_port()}", gloo_rank, "cuda:0", "gloo"),
+        nprocs=GLOO_RANKS, start_method="spawn")
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(GLOO_RANKS):
+        with open(os.path.join(cfg.OUTPUT_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    ref = cfg.clone()
+    ref.NUM_GPUS = 1
+    one = {}
+    for norm_type, splits in (("batchnorm", 1), ("sub_batchnorm", 2)):
+        run = ref.clone()
+        run.BN.NORM_TYPE, run.BN.NUM_SPLITS = norm_type, splits
+        run.OUTPUT_DIR = os.path.join(root, "one", norm_type)
+        with StatsLog() as stats:
+            zero_launches()
+            train(run)
+            torch.cuda.synchronize()
+            paths[f"one-process {norm_type} train(cfg)"] = read_launches()
+        one[norm_type] = ([r["loss"] for r in stats.of("train_iter")], cu.load_checkpoint(
+            cu.get_path_to_checkpoint(run.OUTPUT_DIR, 1))["model_state"])
+    n_split = {k: p * TRAIN_BATCH // 2 for k, p in _positions(ref).items()}
+    start = {k: v.cpu() for k, v in build_model(ref, "cuda", torch.Generator().manual_seed(
+        ref.RNG_SEED)).state_dict().items()}
+    for tag, mine, theirs in (("batchnorm", "batchnorm", "batchnorm"),
+                              ("sync_batchnorm k=1", "sync_batchnorm", "sub_batchnorm")):
+        losses, want = one[theirs]
+        got = cu.load_checkpoint(cu.get_path_to_checkpoint(
+            os.path.join(cfg.OUTPUT_DIR, mine), 1))["model_state"]
+        if mine == "sync_batchnorm":  # biased -> unbiased with a split's count n
+            cut = len(".running_var")
+            got = {k: (v.double() * n_split[k[:-cut]] / (n_split[k[:-cut]] - 1)
+                       if k.endswith(".running_var") else v) for k, v in got.items()}
+        params = [k for k in want if not k.endswith(("running_mean", "running_var",
+                                                      "num_batches_tracked"))]
+        update = _rel_l2(torch.cat([(got[k] - start[k]).double().flatten() for k in params]),
+                         torch.cat([(want[k] - start[k]).double().flatten() for k in params]))
+        stats = {s: _rel_l2(torch.cat([got[k].double().flatten() for k in want if k.endswith(s)]),
+                            torch.cat([want[k].double().flatten() for k in want if k.endswith(s)]))
+                 for s in ("running_mean", "running_var")}
+        leaves = sorted(((k, _rel_l2(got[k], want[k])) for k in want
+                         if not k.endswith("num_batches_tracked")), key=lambda kv: -kv[1])[:3]
+        rank_losses = ranks[0][mine]["losses"]
+        diff = max(abs(a - b) / abs(b) for a, b in zip(rank_losses, losses))
+        print(f"[ranks] gloo x{GLOO_RANKS} on cuda:0, {tag}, against one process with {theirs}"
+              f"{' S=2' if theirs == 'sub_batchnorm' else ''}: norms {ranks[0][mine]['norms']}, "
+              f"losses {rank_losses} against {losses} (max relative diff {diff:.3g}); the "
+              f"step's update {update:.3g} relative L2 from one process's, running means "
+              f"{stats['running_mean']:.3g}, running variances {stats['running_var']:.3g}; worst "
+              f"leaves {[(k, float(f'{v:.3g}')) for k, v in leaves]} (float32, TF32 off) | {card}",
+              flush=True)
+        check(all(r[mine]["wrapper"] == "DistributedDataParallel" and r[mine]["step"] == 1
+                  for r in ranks), f"[ranks] gloo {tag}: {[r[mine] for r in ranks]}")
+        check(len(rank_losses) == len(losses) == 1 and diff <= GLOO_LOSS_TOL
+              and update <= GLOO_UPDATE_TOL and max(stats.values()) <= GLOO_STAT_TOL,
+              f"[ranks] gloo {tag}: losses {diff:.3g}, update {update:.3g}, statistics {stats}")
+        for r, rec in enumerate(ranks):
+            paths[f"gloo rank {r} {tag} train(cfg)"] = rec[mine]["launches"]
+            check(rec[mine]["launches"]["logmel_bf16"] == GLOO_LAUNCHES,
+                  f"[ranks] gloo rank {r} {tag}: launches {rec[mine]['launches']}")
+    scores_dir = os.path.join(cfg.OUTPUT_DIR, "batchnorm", "scores")
+    check(os.listdir(scores_dir) == ["gloo_scores.pkl"], f"score pickles {os.listdir(scores_dir)}")
+    with open(os.path.join(scores_dir, "gloo_scores.pkl"), "rb") as f:
+        two = pickle.load(f)
+    tcfg = cfg.clone()
+    tcfg.NUM_GPUS = 1
+    tcfg.OUTPUT_DIR = os.path.join(root, "one", "test")
+    tcfg.TEST.CHECKPOINT_FILE_PATH = cu.get_path_to_checkpoint(
+        os.path.join(cfg.OUTPUT_DIR, "batchnorm"), 1)
+    zero_launches()
+    preds, labels = test(tcfg)
+    torch.cuda.synchronize()
+    paths["one-process gloo-set test(cfg)"] = read_launches()
+    diff = float(np.abs(two["output"] - preds).max())
+    leads = [r["test"]["lead"] for r in ranks]
+    print(f"[ranks] gloo x{GLOO_RANKS} test(cfg): one pickle, {two['output'].shape} scores "
+          f"{diff:.3g} max abs from one process's, local rank 0 kept the meter ({leads}); "
+          f"{wall:.1f} s for the two ranks' runs, spawn included | {card}", flush=True)
+    check(np.array_equal(two["labels"], labels) and diff <= GLOO_SCORE_TOL
+          and leads == [True, False],
+          f"[ranks] gloo test: scores {diff:.3g} apart, labels equal "
+          f"{np.array_equal(two['labels'], labels)}, leads {leads}")
+    for r, rec in enumerate(ranks):
+        paths[f"gloo rank {r} test(cfg)"] = rec["test"]["launches"]
+        check(rec["test"]["launches"]["logmel_bf16"] == TEST_LAUNCHES,
+              f"[ranks] gloo rank {r} test: launches {rec['test']['launches']}")
+
+    # The float64 step of the two ranks against one process's.
+    zero_launches()
+    one = float64_step(1, torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    paths["one-process float64 step"] = read_launches()
+    two = torch.load(os.path.join(cfg.OUTPUT_DIR, "float64.pt"))
+    names = list(one["grads"])
+    grad = _rel_l2(torch.cat([two["grads"][k].flatten() for k in names]),
+                   torch.cat([one["grads"][k].flatten() for k in names]))
+    leaf = max(((k, _rel_l2(two["grads"][k], one["grads"][k])) for k in names),
+               key=lambda kv: kv[1])
+    stats = {s: _rel_l2(torch.cat([v.flatten() for k, v in two["stats"].items() if k.endswith(s)]),
+                        torch.cat([v.flatten() for k, v in one["stats"].items() if k.endswith(s)]))
+             for s in ("running_mean", "running_var")}
+    loss = abs(two["loss"] - one["loss"]) / abs(one["loss"])
+    fronts = [rec["float64"]["front_end"] for rec in ranks]
+    print(f"[ranks] gloo x{GLOO_RANKS} on cuda:0, each rank's front end against the host "
+          f"batch's rows: {fronts} max abs (K1 at 32 rows; with SpecAugment, its share of the "
+          f"draws) | {card}", flush=True)
+    check(max(v for f in fronts for v in f.values()) <= GLOO_FRONT_TOL,
+          f"[ranks] a rank's front end {fronts} (bound {GLOO_FRONT_TOL})")
+    print(f"[ranks] gloo x{GLOO_RANKS} on cuda:0, one float64 step on the same front-end output "
+          f"(norms {two['norms']}) against one process's ({one['norms']}): gradient {grad:.3g} "
+          f"relative L2, worst leaf {leaf[0]} {leaf[1]:.3g}; running means "
+          f"{stats['running_mean']:.3g}, variances {stats['running_var']:.3g}; loss "
+          f"{two['loss']:.9f} against {one['loss']:.9f} ({loss:.3g}) | {card}", flush=True)
+    check(two["norms"] == ["GroupedBatchNorm2d"] and one["norms"] == ["BatchNorm2d"],
+          f"[ranks] float64 step: norms {two['norms']} against {one['norms']}")
+    check(max(grad, leaf[1], loss, *stats.values()) <= GLOO_F64_TOL,
+          f"[ranks] float64 step: gradient {grad:.3g}, leaf {leaf}, statistics {stats}, loss "
+          f"{loss:.3g} (bound {GLOO_F64_TOL})")
+    for r, rec in enumerate(ranks):
+        paths[f"gloo rank {r} front end and float64 step"] = rec["float64"]["launches"]
+        check(rec["float64"]["launches"]["logmel_f32"] == 5,
+              f"[ranks] gloo rank {r} front end and float64 step: launches "
+              f"{rec['float64']['launches']}")
+    return paths
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card, sass = phase_device()
@@ -2254,7 +2823,8 @@ def main() -> None:
     eval_launches, _ = phase_slice(card)
     train_launches, train_timing = phase_train(card)
     with tempfile.TemporaryDirectory() as root:
-        loop_launches, loop_cfg = phase_train_cfg(card, train_timing["flagship"]["ms"], root)
+        loop_launches, loop_cfg, run1_losses = phase_train_cfg(
+            card, train_timing["flagship"]["ms"], root)
         test_launches = phase_test_cfg(card, loop_cfg)
         epic_train_launches, epic_test_launches, epic_ckpt = phase_epic(
             card, loop_cfg, train_timing["flagship"]["ms"], root)
@@ -2266,12 +2836,19 @@ def main() -> None:
         slide_launches = phase_slide(card, epic_ckpt, root)
         print(f"[smoke] phase 10: {t_slide - t10:.1f} s for the two ResNets, "
               f"{time.perf_counter() - t_slide:.1f} s for the sliding windows", flush=True)
+        t11 = time.perf_counter()
+        bn_launches, _, plain_sync = phase_bn_types(card)
+        t_ranks = time.perf_counter()
+        rank_launches = phase_ranks(card, loop_cfg, run1_losses, plain_sync)
+        print(f"[smoke] phase 11: {t_ranks - t11:.1f} s for the batch-norm types, "
+              f"{time.perf_counter() - t_ranks:.1f} s across ranks", flush=True)
     check_instructions(card, sass, kernels)
     paths = {"eval": eval_launches, **{f"train {k}": v for k, v in train_launches.items()},
              "train(cfg)": loop_launches, "test(cfg)": test_launches,
              "epic train(cfg)": epic_train_launches, "epic test(cfg)": epic_test_launches,
              "gru train(cfg)": gru_train_launches, "gru test(cfg)": gru_test_launches,
-             **state_launches, **resnet_launches, "slide test(cfg)": slide_launches}
+             **state_launches, **resnet_launches, "slide test(cfg)": slide_launches,
+             **{f"train {k}": v for k, v in bn_launches.items()}, **rank_launches}
     line = []
     for name, res in kernels.items():
         geometry, batch = LINE_BATCH[name]

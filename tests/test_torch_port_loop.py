@@ -508,11 +508,12 @@ def test_train_raises_without_cuda(monkeypatch):
 
 
 def test_train_raises_with_more_than_one_shard():
-    """No process group and no gradient all-reduce yet: a shard would train
-    alone on its share of the data at the scaled LR."""
+    """More than one shard (or device) is a process group that ``run_net``
+    starts: without one, ``train(cfg)`` raises and names it, before it
+    builds or reads anything."""
     cfg = get_cfg()
     cfg.NUM_SHARDS = 2
-    with pytest.raises(NotImplementedError, match="NUM_SHARDS = 2"):
+    with pytest.raises(RuntimeError, match="NUM_SHARDS = 2.*run_net"):
         train(cfg, device="cpu")
 
 

@@ -256,14 +256,22 @@ def test_test_matches_jax_test(vgg_root, test_pyth, tmp_path, method):  # noqa: 
 
 
 def test_test_raises_for_what_later_slices_bring():
+    """What ``test(cfg)`` and ``run_net`` refuse now that ranks are ported:
+    more than one shard without the process group ``run_net`` starts (the
+    error names it), ``NUM_GPUS`` above the CUDA device count (NCCL takes a
+    card a rank), and a world size that ``NUM_SYNC_DEVICES`` does not divide."""
     cfg = get_cfg()
     cfg.merge_from_list(["NUM_SHARDS", 2])
-    with pytest.raises(NotImplementedError, match="NUM_SHARDS = 2"):
+    with pytest.raises(RuntimeError, match="NUM_SHARDS = 2.*run_net"):
         port_test(cfg, device="cpu")
     cfg = get_cfg()
-    cfg.NUM_SHARDS = 2
-    with pytest.raises(NotImplementedError, match="NUM_SHARDS = 2"):
+    cfg.NUM_GPUS = max(2, torch.cuda.device_count() + 1)
+    with pytest.raises(ValueError, match="CUDA devices"):
         run_net.launch_job(cfg, "tcp://localhost:9999", port_test)
+    cfg = get_cfg()
+    cfg.merge_from_list(["BN.NORM_TYPE", "sync_batchnorm", "BN.NUM_SYNC_DEVICES", 2])
+    with pytest.raises(ValueError, match="NUM_SYNC_DEVICES = 2 does not divide the world size 1"):
+        port_test(cfg, device="cpu")
 
 
 def test_run_net_trains_then_tests_from_a_yaml_file(vgg_root, tmp_path):  # noqa: F811
