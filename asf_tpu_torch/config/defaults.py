@@ -4,8 +4,8 @@ The nodes the eval and train slices, the VGG-Sound and EPIC-KITCHENS data
 paths, ``train(cfg)`` and ``test(cfg)`` read, copied key-for-key from
 ``asf_tpu/config/defaults.py`` so that YAMLs written for the JAX package
 merge unchanged, plus a ``GPU`` node: the counterparts of
-``TPU.COMPUTE_DTYPE``, ``TPU.DSP_PRECISION``, ``TPU.SPEC_AUGMENT`` and
-``TPU.INT16_TRANSFER``. There is no kernel
+``TPU.COMPUTE_DTYPE``, ``TPU.DSP_PRECISION``, ``TPU.SPEC_AUGMENT``,
+``TPU.INT16_TRANSFER``, ``TPU.WATCH_HISTOGRAMS`` and ``TPU.PROFILE_*``. There is no kernel
 on/off switch: on CUDA tensors the hand-written kernels always run, on CPU tensors
 their plain PyTorch versions do.
 """
@@ -230,13 +230,33 @@ _C.RNG_SEED = 1
 _C.LOG_PERIOD = 10
 _C.LOG_MODEL_INFO = True
 
-# The observers are not ported (ROADMAP.md section 1 item 7): train(cfg)
-# warns when the repo's YAMLs enable them and goes on without them.
+# ---------------------------------------------------------------------------
+# Observers (engine/observers.py): TensorBoard scalars and val plots, W&B
+# scalars, histograms and alerts. Each sink is imported where it is used;
+# without its package it warns and training goes on.
+# ---------------------------------------------------------------------------
 _C.TENSORBOARD = CfgNode()
 _C.TENSORBOARD.ENABLE = False
+_C.TENSORBOARD.PREDICTIONS_PATH = ""
 _C.TENSORBOARD.LOG_DIR = ""
+_C.TENSORBOARD.CLASS_NAMES_PATH = ""
+_C.TENSORBOARD.CATEGORIES_PATH = ""
+
+_C.TENSORBOARD.CONFUSION_MATRIX = CfgNode()
+_C.TENSORBOARD.CONFUSION_MATRIX.ENABLE = False
+_C.TENSORBOARD.CONFUSION_MATRIX.FIGSIZE = [8, 8]
+_C.TENSORBOARD.CONFUSION_MATRIX.SUBSET_PATH = ""
+
+_C.TENSORBOARD.HISTOGRAM = CfgNode()
+_C.TENSORBOARD.HISTOGRAM.ENABLE = False
+_C.TENSORBOARD.HISTOGRAM.SUBSET_PATH = ""
+_C.TENSORBOARD.HISTOGRAM.TOPK = 10
+_C.TENSORBOARD.HISTOGRAM.FIGSIZE = [8, 8]
+
 _C.WANDB = CfgNode()
 _C.WANDB.ENABLE = False
+# A run id resumes that W&B run (resume="must").
+_C.WANDB.RUN_ID = ""
 
 # ---------------------------------------------------------------------------
 # GPU options of the port (counterparts of the JAX package's TPU node)
@@ -255,6 +275,16 @@ _C.GPU.SPEC_AUGMENT = True
 # applies the /32768 scale (bit-identical to the host conversion) and the
 # copy moves half the bytes. Applies to wav-backed datasets.
 _C.GPU.INT16_TRANSFER = True
+# Per-layer parameter and gradient histograms (64 bins and the range of each
+# leaf, counted on the card) every LOG_PERIOD steps, sent to W&B when
+# WANDB.ENABLE and a W&B run is live; skipped otherwise.
+_C.GPU.WATCH_HISTOGRAMS = True
+# When non-empty, a torch.profiler trace (CPU and CUDA activities, a Chrome
+# trace file) of PROFILE_NUM_ITERS training steps from PROFILE_START_ITER of
+# the first epoch is written into this directory.
+_C.GPU.PROFILE_DIR = ""
+_C.GPU.PROFILE_START_ITER = 10
+_C.GPU.PROFILE_NUM_ITERS = 5
 
 
 def _assert_and_infer_cfg(cfg: CfgNode) -> CfgNode:

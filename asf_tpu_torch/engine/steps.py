@@ -12,8 +12,15 @@ the verb, noun and state losses, the state's over labels built on the
 device from the chains' ``lengths`` (a single clip is one window holding
 its postcondition), and the metrics add ``state_pred_max_abs``. The JAX
 package's scanned K-step dispatch (:354-416) exists for XLA dispatch costs
-and is not ported; its ``WANDB`` watch histograms (:315-335) come with the
-observers.
+and is not ported.
+
+``watch_summary`` is ``asf_tpu/engine/steps.py:242-276``: a 64-bin
+histogram and the range of each parameter and gradient, computed on the
+card. A step built with ``watch=True`` adds it to its parts under
+``"watch"`` every ``LOG_PERIOD`` steps (the JAX step's :315-335), where the
+train loop reads it at its flush. ``train(cfg)`` builds it so only while a
+W&B run is live (the JAX step computes it whenever ``WANDB.ENABLE`` and
+drops it without a run).
 
 One step is: the input pipeline with SpecAugment, the train-mode forward
 (BN running statistics update here), the loss, ``backward``, the LR written
@@ -191,6 +198,39 @@ def reduce_over_ranks(values: dict) -> dict:
             for i, k in enumerate(names)}
 
 
+WATCH_BINS = 64
+
+
+def watch_name(name: str, ndim: int) -> str:
+    """The JAX tree path of parameter ``name``, joined by "/": a conv or
+    dense ``weight`` is a ``kernel``, a norm's ``weight`` its ``scale``
+    (the converter's names, ``checkpoint/convert.py``)."""
+    *prefix, leaf = name.split(".")
+    if leaf == "weight":
+        leaf = "kernel" if ndim in (2, 4) else "scale"
+    return "/".join(prefix + [leaf])
+
+
+@torch.no_grad()
+def watch_summary(tensors: list) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(counts (L, 64) int64, ranges (L, 2) float32)`` of L tensors, on
+    their device: each one's float32 values binned by the JAX package's rule,
+    ``clip(int((x - lo) / max(hi - lo, 1e-12) * 64), 0, 63)`` over its
+    ``[lo, hi]``, the bin edges ``linspace(lo, hi, 65)``. The counts are
+    added with ``scatter_add_``, which reads nothing back to the host
+    (``torch.bincount`` on CUDA reads its input's maximum to size its
+    output)."""
+    xs = [t.detach().float().reshape(-1) for t in tensors]
+    ranges = torch.stack([torch.stack(torch.aminmax(x)) for x in xs])
+    span = (ranges[:, 1] - ranges[:, 0]).clamp(min=1e-12)
+    counts = torch.zeros(len(xs), WATCH_BINS, dtype=torch.int64, device=ranges.device)
+    for i, x in enumerate(xs):
+        idx = ((x - ranges[i, 0]) / span[i] * WATCH_BINS).to(torch.int32)
+        idx = idx.clamp_(0, WATCH_BINS - 1).long()
+        counts[i].scatter_add_(0, idx, torch.ones_like(idx))
+    return counts, ranges
+
+
 @dataclass
 class TrainState:
     """What the step updates in place: the model (parameters and BN
@@ -214,7 +254,7 @@ def init_state(cfg, model: nn.Module) -> TrainState:
                       generator=torch.Generator(device=device).manual_seed(0))
 
 
-def make_train_step(cfg, device):
+def make_train_step(cfg, device, watch: bool = False):
     """``train_step(state, batch, lr) -> (parts, stats)``.
 
     ``batch`` holds ``waveform`` (B, S) float32 or int16, ``n_valid`` (B,)
@@ -223,11 +263,16 @@ def make_train_step(cfg, device):
     model waveform (B, N, S), n_valid (B, N), ``lengths`` (B,),
     ``noun_embedding`` (B, 512) and ``host_lengths``.
     The model, optimizer and step count in ``state`` are updated in place.
+    With ``watch``, a step whose count before it is a multiple of
+    ``LOG_PERIOD`` adds ``parts["watch"] = (names, counts, ranges)``:
+    ``watch_summary`` of every parameter after the update
+    (``parameters/<path>``) and every gradient (``gradients/<path>``).
     """
     pipeline = make_input_pipeline(cfg, device)
     forward = apply_model(cfg)
     loss_fn = make_loss_fn(cfg)
     device_metrics = make_device_metrics(cfg)
+    watch_period = max(1, int(cfg.LOG_PERIOD))
 
     def train_step(state: TrainState, batch: dict, lr: float):
         model, optimizer = state.model, state.optimizer
@@ -250,6 +295,13 @@ def make_train_step(cfg, device):
                 stats = {k: reduced[k] for k in stats}
             parts["grad_norm"] = global_norm(p.grad for p in params)
             parts["param_norm"] = global_norm(model.parameters())
+            if watch and state.step % watch_period == 0:
+                named = list(model.named_parameters())
+                graded = [(n, p) for n, p in named if p.grad is not None]
+                names = ([f"parameters/{watch_name(n, p.dim())}" for n, p in named]
+                         + [f"gradients/{watch_name(n, p.dim())}" for n, p in graded])
+                parts["watch"] = (names, *watch_summary(
+                    [p for _, p in named] + [p.grad for _, p in graded]))
         state.step += 1
         return parts, stats
 

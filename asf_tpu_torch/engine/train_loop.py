@@ -22,8 +22,19 @@ With the state head each step also copies ``state_loss`` and
 ``state_pred_max_abs``, and at the flush ``check_state_alerts`` reads every
 iteration's (the JAX package's ``:54-71``): all |state logits| at most 0.1
 raises "State looking strange", a state loss of 40 or more the loss alert.
-Without the observers their sink is ``AlertLog``, which logs a warning, as
-the JAX package's ``ScalarLogger.alert`` does without W&B.
+
+The observers (``engine/observers.py:ScalarLogger``, on rank 0 only, as
+the JAX package's ``:483-527``): at the flush every ``LOG_PERIOD``-th
+iteration logs ``Train/<part>`` (the loss parts, ``grad_norm``,
+``param_norm``) and ``Train/lr`` at global step ``data_size * epoch + it``;
+each eval logs ``Val/<key>`` at ``(epoch + 1) * len(train_loader)``, and
+the val plots at ``epoch`` (``eval_loop.py``); with a live W&B run and
+``GPU.WATCH_HISTOGRAMS`` the step's parameter and gradient histograms of
+every ``LOG_PERIOD``-th step go to W&B, read at the flush with the step's
+other numbers. The alerts go through the same logger, which always logs
+them as warnings. ``GPU.PROFILE_DIR`` traces ``PROFILE_NUM_ITERS`` steps of
+the first epoch with ``torch.profiler`` into a Chrome trace there (the JAX
+package's ``TPU.PROFILE_DIR``, ``:83-85``).
 
 In a process group (``tools/run_net.py``; ``parallel/dist.py``) every
 rank trains the same model on its rows of each host batch: the model is
@@ -31,17 +42,17 @@ wrapped in ``DistributedDataParallel`` (``broadcast_buffers=False``: the
 batch-norm statistics are made equal on every rank by the norms
 themselves), the step averages the loss parts and accuracies over the
 ranks on the card, precise BN runs on every rank, and only global rank 0
-logs at INFO and writes checkpoints, each followed by a barrier so that
-every rank finds the file an auto-resume reads.
+logs at INFO, observes and writes checkpoints, each checkpoint followed by
+a barrier so that every rank finds the file an auto-resume reads.
 
-Not ported here: the observers (TensorBoard, W&B), the AOT warm-up, the
-device store, the profiler window and the K-step dispatch.
+Not ported here: the AOT warm-up, the device store and the K-step dispatch.
 """
 
 from __future__ import annotations
 
 import itertools
 import math
+import os
 
 import numpy as np
 import torch
@@ -59,6 +70,7 @@ from ..utils.misc import log_model_info
 from ..utils.torch_setup import disable_tf32, resolve_device
 from .eval_loop import build_val_meter, eval_epoch
 from .meters import EPICTrainMeter, TrainMeter
+from .observers import ScalarLogger
 from .steps import (
     apply_model,
     has_state_head,
@@ -74,13 +86,6 @@ logger = get_logger(__name__)
 def check_nan_losses(loss: float):
     if math.isnan(loss):
         raise RuntimeError(f"ERROR: Got NaN losses {loss}")
-
-
-class AlertLog:
-    """The alert sink without observers: each alert a warning."""
-
-    def alert(self, title: str, text: str):
-        logger.warning("%s: %s", title, text)
 
 
 def check_state_alerts(parts_h: dict, stats_h: dict, sink) -> None:
@@ -99,13 +104,6 @@ def check_state_alerts(parts_h: dict, stats_h: dict, sink) -> None:
         sink.alert("state_loss >= 40", f"Anomalous state loss: {state_loss:.4g}")
 
 
-# The step's numbers each meter takes, in the order they are copied off the card.
-_SINGLE = ("loss", "top1_err", "top5_err")
-_MULTI = ("loss", "verb_loss", "noun_loss", "verb_top1", "noun_top1", "action_top1",
-          "verb_top5", "noun_top5", "action_top5")
-_STATE = _MULTI + ("state_loss", "state_pred_max_abs")
-
-
 def _update(train_meter, values: dict, lr: float, rows: int) -> None:
     if isinstance(train_meter, EPICTrainMeter):
         train_meter.update_stats(
@@ -115,37 +113,94 @@ def _update(train_meter, values: dict, lr: float, rows: int) -> None:
         train_meter.update_stats(values["top1_err"], values["top5_err"], values["loss"], lr, rows)
 
 
-def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, device):
+def _histograms(watch) -> dict:
+    """The watch summary read at the flush as ``log_histograms`` takes it."""
+    names, counts, ranges = watch
+    return {name: {"counts": c, "lo": lo, "hi": hi}
+            for name, c, (lo, hi) in zip(names, counts.numpy(), ranges.tolist())}
+
+
+class _Profile:
+    """``GPU.PROFILE_DIR``: a ``torch.profiler`` window over ``PROFILE_NUM_ITERS``
+    steps from ``PROFILE_START_ITER`` (at most the epoch's second-to-last) of
+    the first epoch, written as a Chrome trace into that directory."""
+
+    def __init__(self, cfg, cur_epoch: int, data_size: int, device):
+        self.dir = cfg.GPU.PROFILE_DIR if cur_epoch == 0 and dist.is_primary() else ""
+        self.start = min(int(cfg.GPU.PROFILE_START_ITER), max(0, data_size - 2))
+        self.n = max(1, int(cfg.GPU.PROFILE_NUM_ITERS))
+        self.cuda = torch.device(device).type == "cuda"
+        self.prof = None
+
+    def before(self, cur_iter: int) -> None:
+        if self.dir and self.prof is None and cur_iter >= self.start:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.cuda:
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+            self.first = self.last = cur_iter
+
+    def after(self, cur_iter: int) -> None:
+        if self.prof is not None:
+            self.last = cur_iter
+            if cur_iter + 1 >= self.first + self.n:
+                self.stop()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        if self.cuda:  # the window's last step may still run on the card
+            torch.cuda.synchronize()
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, f"train_trace_iters_{self.first}-{self.last}.json")
+        self.prof.export_chrome_trace(path)
+        logger.info("Saved profiler trace to %s", path)
+        self.prof, self.dir = None, ""
+
+
+def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, device,
+                scalar_logger=None):
     data_size = len(train_loader)
     log_period = max(1, cfg.LOG_PERIOD)
     cuda = torch.device(device).type == "cuda"
-    names = _SINGLE
-    if isinstance(train_meter, EPICTrainMeter):
-        names = _STATE if has_state_head(cfg) else _MULTI
-    alerts = AlertLog()
-    pending = []  # (iteration, lr, rows, host times, the step's ``names`` on the card)
-    fetches = []  # ([(iteration, lr, rows, host times)], host tensor, event or None)
+    profile = _Profile(cfg, cur_epoch, data_size, device)
+    # (iteration, lr, rows, host times, names, the step's numbers on the card, watch)
+    pending = []
+    fetches = []  # (metas, host numbers, host watches, event or None)
 
     def apply_ready(block: bool):
-        while fetches and (block or fetches[0][2] is None or fetches[0][2].query()):
-            metas, host, event = fetches.pop(0)
+        while fetches and (block or fetches[0][3] is None or fetches[0][3].query()):
+            metas, host, watches, event = fetches.pop(0)
             if event is not None:
                 event.synchronize()
-            for (it, lr, rows, times), row in zip(metas, host.tolist()):
+            for (it, lr, rows, times, (part_names, names)), row, watch in zip(
+                    metas, host.tolist(), watches):
                 values = dict(zip(names, row))
+                global_step = data_size * cur_epoch + it
+                if watch is not None and scalar_logger is not None:
+                    scalar_logger.log_histograms(_histograms(watch), global_step=global_step)
                 check_nan_losses(values["loss"])
-                check_state_alerts(values, values, alerts)
+                check_state_alerts(values, values, scalar_logger)
                 _update(train_meter, values, lr, rows)
                 train_meter.log_iter_stats(cur_epoch, it, times)
+                if scalar_logger is not None and it % log_period == 0:
+                    scalars = {f"Train/{k}": values[k] for k in part_names}
+                    scalars["Train/lr"] = lr
+                    scalar_logger.log(scalars, global_step=global_step)
 
     def flush(block: bool = False):
         if pending:
-            host = torch.stack([v for *_, v in pending]).to("cpu", non_blocking=True)
+            host = torch.stack([p[5] for p in pending]).to("cpu", non_blocking=True)
+            watches = [None if p[6] is None else
+                       (p[6][0], *(t.to("cpu", non_blocking=True) for t in p[6][1:]))
+                       for p in pending]
             event = None
             if cuda:
                 event = torch.cuda.Event()
                 event.record()
-            fetches.append(([tuple(m) for *m, _ in pending], host, event))
+            fetches.append(([p[:5] for p in pending], host, watches, event))
             pending.clear()
         apply_ready(block)
 
@@ -153,20 +208,25 @@ def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, de
     try:
         train_meter.iter_tic()
         for cur_iter, batch in enumerate(src):
+            profile.before(cur_iter)
             train_meter.data_toc()
             lr = lr_policy.get_lr_at_epoch(cfg, cur_epoch + float(cur_iter) / data_size)
             parts, stats = train_step(state, batch, lr)
-            values = torch.stack([{**parts, **stats}[k] for k in names])
+            watch = parts.pop("watch", None)
+            values = torch.stack([*parts.values(), *stats.values()])
             train_meter.iter_toc()
             # the global batch's rows, as the JAX package's meter counts them
             pending.append((cur_iter, lr, batch["waveform"].shape[0] * dist.world_size(),
-                            train_meter.iter_times(), values))
+                            train_meter.iter_times(), (tuple(parts), (*parts, *stats)),
+                            values, watch))
+            profile.after(cur_iter)
             if len(pending) >= log_period:
                 flush()
             train_meter.iter_tic()
         flush(block=True)
     finally:
         src.close()
+        profile.stop()
     train_meter.log_epoch_stats(cur_epoch)
     train_meter.reset()
 
@@ -237,10 +297,6 @@ def train(cfg, device=None):
     setup_logging(cfg.OUTPUT_DIR, is_primary=dist.is_primary())
     dist.check_sync_bn_mesh(cfg)
     dist.check_batch_divisibility(cfg, int(cfg.TRAIN.BATCH_SIZE), "TRAIN")
-    for node in ("TENSORBOARD", "WANDB"):
-        if cfg[node].ENABLE:
-            logger.warning("%s.ENABLE: the observers are not ported; training goes on "
-                           "without them", node)
     np.random.seed(cfg.RNG_SEED)
     logger.info("Train with config:\n%s", cfg.to_json())
 
@@ -259,7 +315,10 @@ def train(cfg, device=None):
                 and cfg.EPICKITCHENS.TRAIN_PLUS_VAL)
     train_loader = construct_loader(cfg, "train+val" if plus_val else "train")
     val_loader = construct_loader(cfg, "val")
-    train_step = make_train_step(cfg, device)
+    scalar_logger = ScalarLogger(cfg) if dist.is_primary() else None
+    watch = bool(cfg.WANDB.ENABLE and cfg.GPU.WATCH_HISTOGRAMS and scalar_logger is not None
+                 and scalar_logger.wandb_run is not None)
+    train_step = make_train_step(cfg, device, watch=watch)
     eval_step = make_eval_step(cfg, device)
     train_meter = build_train_meter(cfg, len(train_loader))
     val_meter = build_val_meter(cfg, len(val_loader))
@@ -269,7 +328,8 @@ def train(cfg, device=None):
         for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
             shuffle_dataset(train_loader, cur_epoch)
             torch.manual_seed(_epoch_seed(cfg.RNG_SEED, cur_epoch, dist.rank()))
-            train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, device)
+            train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, device,
+                        scalar_logger)
             if cfg.BN.USE_PRECISE_STATS:
                 precise_bn(cfg, state, train_loader, train_step.pipeline, device,
                            min(cfg.BN.NUM_BATCHES_PRECISE, len(train_loader)))
@@ -279,7 +339,10 @@ def train(cfg, device=None):
                 cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH
             ):
                 is_best, top1 = eval_epoch(val_loader, model, eval_step, val_meter, cur_epoch,
-                                           cfg, device)
+                                           cfg, device, scalar_logger)
+                if top1 and scalar_logger is not None:
+                    scalar_logger.log({f"Val/{k}": float(v) for k, v in top1.items()},
+                                      global_step=(cur_epoch + 1) * len(train_loader))
                 if is_best:
                     cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch, cfg,
                                        name="checkpoint_best")
@@ -287,4 +350,6 @@ def train(cfg, device=None):
     finally:
         train_loader.close()
         val_loader.close()
+        if scalar_logger is not None:
+            scalar_logger.close()
     return state

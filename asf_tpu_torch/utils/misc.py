@@ -1,13 +1,14 @@
-"""Model info and memory gauges.
+"""Model info, memory gauges and class names.
 
-Counterpart of ``asf_tpu/utils/misc.py``: ``params_count`` and
-``log_model_info``, with the card's memory from ``torch.cuda`` where the
-JAX package reads the TPU's. The JAX package's XLA flop count
-(``flops_of``) has no counterpart here.
+Counterpart of ``asf_tpu/utils/misc.py``: ``params_count``,
+``log_model_info`` and ``get_class_names``, with the card's memory from
+``torch.cuda`` where the JAX package reads the TPU's. The JAX package's XLA
+flop count (``flops_of``) has no counterpart here.
 """
 
 from __future__ import annotations
 
+import json
 import os
 
 import torch
@@ -49,3 +50,29 @@ def log_model_info(model: nn.Module) -> None:
     mem = gpu_mem_gb()
     if mem is not None:
         logger.info("Peak device memory: %.3f GB", mem)
+
+
+def get_class_names(path: str, parent_path: str = "", subset_path: str = ""):
+    """(class names by id, parent -> child ids, subset ids) from a JSON map
+    of class name to id, a JSON map of parent to child names, and a subset
+    file of one class name a line (the TensorBoard plots' class names)."""
+    with open(path) as f:
+        class2idx = json.load(f)
+    class_names = [None] * (max(class2idx.values()) + 1)
+    for name, idx in class2idx.items():
+        class_names[idx] = name
+
+    class_parent = None
+    if parent_path:
+        with open(parent_path) as f:
+            d_parent = json.load(f)
+        class_parent = {parent: [class2idx[c] for c in children if class2idx.get(c) is not None]
+                        for parent, children in d_parent.items()}
+
+    subset_ids = None
+    if subset_path:
+        with open(subset_path) as f:
+            subset = f.read().split("\n")
+        subset_ids = [class2idx[name] for name in subset if class2idx.get(name) is not None]
+
+    return class_names, class_parent, subset_ids

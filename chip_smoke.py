@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Twelve phases, each of which raises on a
+Run from the root of a checkout. Thirteen phases, each of which raises on a
 failed check (the script then exits non-zero and prints no result):
 
 1. Device and build: needs a CUDA device; prints the card's name and power
@@ -212,7 +212,36 @@ failed check (the script then exits non-zero and prints no result):
    such gap); each rank launches ``logmel_bf16`` 3 times a run; then a
    two-rank ``test(cfg)`` of phase 6's set writes one pickle whose scores
    lie within ``GLOO_SCORE_TOL`` of one process's (5 launches a rank).
-12. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
+12. The tools. ``predict`` (``tools/predict.py``, in this process) over one
+   of phase 7's 120 s videos with phase 7's checkpoint (``NUM_FRAMES`` 384,
+   so that the head's pools keep the ratio ALPHA): the bf16 front end
+   launches ``logmel_bf16`` once over the whole file (1 x 24,001 frames),
+   ``GPU.DSP_PRECISION`` HIGHEST ``logmel_f32`` once; phase 5's flagship
+   checkpoint on a file shorter than a clip (0.5 s, edge-padded to 256
+   frames), and on another 120 s video at the wide-window geometry, where
+   the front end picks ``logmel_bf16``, not ``logmel_bf16_wide``, above 512
+   frames. In each: the one launch counted, the ``.npz`` holding the
+   returned scores, the kernel's log-mel at that shape within
+   ``BF16_TOL``/``F32_TOL`` of its plain version, timed warm and cold with
+   its bound, and the probabilities of its spectrogram within ``PROB_TOL``
+   of the plain front end's through ``float32_copy`` (the 1 % control is
+   printed, not gated). Then ``asf_tpu_torch.main``'s ``main`` with
+   ``--train`` (in this process): the dataset preparation from phase 7's
+   list-of-dict rows as the originals (24 of 97 verbs, the domain's
+   actions first; balanced augmentation; ``pddl/domain.pddl``; the seeded
+   CLIP fallback), one epoch fine-tuned from phase 5's checkpoint with the
+   loader in this process, TensorBoard and W&B on (a stand-in ``wandb``
+   module that records its calls, so the watch histograms run on the
+   card) and ``GPU.PROFILE_DIR``, then the test with a config read afresh
+   (2 views): the lists, ``attributes.csv`` and the score pickle written,
+   ``logmel_bf16`` once a batch, the histograms every ``LOG_PERIOD`` steps
+   with each leaf's counts summing to its size, the live sinks printed, and
+   the Chrome trace holding ``logmel_tc_kernel`` events (one a traced step at
+   most). Then
+   ``stress_test`` (n = 8192, 5 s; its TFLOP/s printed), and the spectrogram
+   dumper's ``_item_pathways`` on one item (one ``logmel_bf16`` launch)
+   within ``BF16_TOL`` of the plain pipeline on the CPU.
+13. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
    both above the card's float32 CUDA-core peak at their main-path shapes
    (``logmel_bf16`` flagship at B = 64 and 128, ``logmel_bf16_wide`` at
    B = 64); no ``HGMMA`` and no ``HMMA`` in the SASS of ``logmel_f32``'s
@@ -220,7 +249,7 @@ failed check (the script then exits non-zero and prints no result):
    slices, so that a run against an older tree of the kernels (a
    parent-versus-change comparison) still prints all its times before it
    fails.
-13. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+14. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -237,6 +266,7 @@ import sys
 import tempfile
 import time
 import traceback
+import types
 import warnings
 from pathlib import Path
 
@@ -390,6 +420,16 @@ GLOO_UPDATE_TOL, GLOO_LOSS_TOL, GLOO_STAT_TOL = 0.05, 1e-5, 1e-5
 GLOO_F64_TOL, GLOO_FRONT_TOL = 1e-9, 1e-5
 # logmel_bf16 launches a rank in that epoch: 1 train, 2 val.
 GLOO_LAUNCHES = 3
+# Phase 12: predict on a file shorter than a clip, main's verb subset (of 97),
+# its test views and its logging period (the watch histograms' too), and the
+# stress test's matrix size and seconds.
+PREDICT_SHORT_SECS = 0.5
+PREDICT_EPIC_FRAMES = 384  # NUM_FRAMES of the whole-file EPIC predict (phase_tools)
+MAIN_VERBS, MAIN_VIEWS, MAIN_LOG_PERIOD = 24, 2, 2
+STRESS_N, STRESS_SECS = 8192, 5.0
+# The device of phase 12's runs: the card ("cpu" rehearses the phase's code
+# on the CPU, where its launch checks fail, as they must).
+TOOLS_DEVICE = "cuda"
 
 
 def check(ok: bool, msg: str) -> None:
@@ -535,13 +575,33 @@ def geometry_cfg(geometry: str):
             "epic": epic_cfg}[geometry]()
 
 
+def kernel_work(p, args: tuple, geo: dict, card: str) -> dict:
+    """The bound of one log-mel launch on ``args`` (wave, w_cos, w_sin,
+    mel_w): the work the function must do, the DFT over the window's
+    nonzero taps (239 of the aligned 256 at the flagship geometry, 2047 of
+    2048 at the wide one) for the frequencies that feed a mel bin (1,024 of
+    1 + n_fft/2 at both: not the DC bin) and their mel product, over the
+    card's peak for the kernel's type, against each input read once and the
+    output written once over its memory rate; the larger."""
+    f32_peak, bf16_peak, mem_rate = peaks(card)
+    frames = args[0].shape[0] * geo["n_frames"]
+    taps = p.support[1] - p.support[0]
+    n_freqs = int((p.mel_w.float().abs().sum(dim=1) > 0).sum())
+    flops = frames * (2 * 2 * taps * n_freqs + 2 * n_freqs * p.n_mels)
+    nbytes = sum(t.numel() * t.element_size() for t in args) + frames * p.n_mels * 4
+    op_ms = flops / (bf16_peak if p.fast else f32_peak) * 1e3
+    byte_ms = nbytes / mem_rate * 1e3
+    return dict(bound_ms=max(op_ms, byte_ms),
+                bound_by="operations" if op_ms >= byte_ms else "bytes",
+                gflop=flops / 1e9, mbytes=nbytes / 1e6)
+
+
 def phase_kernels(card: str) -> dict:
     from asf_tpu_torch.dsp.logmel import LogMelParams
     from asf_tpu_torch.ops import logmel as ops
     from asf_tpu_torch.utils.torch_setup import disable_tf32
 
     disable_tf32()
-    f32_peak, bf16_peak, mem_rate = peaks(card)
     l2_gbs = l2_read_gbs()
     print(f"[kernel] L2 read rate (torch.sum over 24 MB held in L2): {l2_gbs:.0f} GB/s "
           f"| {card}", flush=True)
@@ -589,23 +649,9 @@ def phase_kernels(card: str) -> dict:
             ms = cuda_ms(lambda: kernel(*args, **geo), reps=25)
             cold = cold_ms(lambda: kernel(*args, **geo), flush, reps=15)
             plain_ms = cuda_ms(lambda: plain(*args, **geo), reps=20, runs=3)
-            # Work the function must do: the DFT over the window's nonzero
-            # taps (239 of the aligned 256 at the flagship geometry, 2047 of
-            # 2048 at the wide one) for the frequencies that feed a mel bin
-            # (1,024 of 1 + n_fft/2 at both: not the DC bin), their mel
-            # product; each input read once.
-            frames = batch * geo["n_frames"]
-            taps = p.support[1] - p.support[0]
-            n_freqs = int((p.mel_w.float().abs().sum(dim=1) > 0).sum())
-            flops = frames * (2 * 2 * taps * n_freqs + 2 * n_freqs * p.n_mels)
-            nbytes = (sum(t.numel() * t.element_size() for t in args)
-                      + frames * p.n_mels * 4)
-            peak = bf16_peak if p.fast else f32_peak
-            op_ms, byte_ms = flops / peak * 1e3, nbytes / mem_rate * 1e3
-            row = dict(ms=ms, cold_ms=cold, plain_ms=plain_ms, bound_ms=max(op_ms, byte_ms),
-                       bound_by="operations" if op_ms >= byte_ms else "bytes",
-                       gflop=flops / 1e9, mbytes=nbytes / 1e6, max_abs_err=max_err,
-                       tflops=flops / ms / 1e9)
+            row = dict(ms=ms, cold_ms=cold, plain_ms=plain_ms, max_abs_err=max_err,
+                       **kernel_work(p, args, geo, card))
+            row["tflops"] = row["gflop"] / ms
             print(f"[kernel] {tag}: max_abs_err {max_err:.3g} mean {mean_err:.3g} | "
                   f"{ms:.4f} ms warm, {cold:.4f} ms cold (plain {plain_ms:.4f} ms, bound "
                   f"{row['bound_ms']:.4f} ms by {row['bound_by']}, {row['bound_ms'] / ms:.3f} of "
@@ -662,7 +708,7 @@ def f32_branches(tag: str, card: str, args: tuple, geo: dict, got: torch.Tensor,
 
 
 def check_instructions(card: str, sass: dict, kernels: dict) -> None:
-    """Phase 11: both bf16 kernels hold HGMMA and beat the float32 CUDA-core
+    """Phase 13: both bf16 kernels hold HGMMA and beat the float32 CUDA-core
     peak at their main-path shapes; logmel_f32's kernels hold no tensor-core
     instruction."""
     n_fns, hgmma, hmma = sass["logmel_f32"]
@@ -2816,6 +2862,380 @@ def phase_ranks(card: str, loop_cfg, run1_losses: list, plain_sync: list) -> dic
     return paths
 
 
+class WandbStandIn(types.ModuleType):
+    """A ``wandb`` module that records ``init``, ``log``, ``alert`` and
+    ``finish``: the card's machine has no ``wandb``, and this lets the watch
+    histograms run on the card."""
+
+    class AlertLevel:
+        WARN = "WARN"
+
+    class Histogram:
+        def __init__(self, np_histogram=None):
+            self.np_histogram = np_histogram
+
+    def __init__(self):
+        super().__init__("wandb")
+        self.calls = []
+        calls = self.calls
+
+        class Run:
+            def log(self, payload, step=None):
+                calls.append(("log", payload, step))
+
+            def alert(self, title, text, level):
+                calls.append(("alert", title, text, level))
+
+            def finish(self):
+                calls.append(("finish",))
+
+        self._run = Run
+
+    def init(self, **kwargs):
+        self.calls.append(("init", kwargs))
+        return self._run()
+
+
+def _predict_case(card: str, tag: str, cfg, wav: str, kernels: dict, flush) -> dict:
+    """``predict.main`` on ``wav`` with ``cfg``'s checkpoint; returns its
+    launch counts. Gates: one launch of the kernel ``cfg``'s front end picks
+    at the whole file's frames, the ``.npz`` holding the returned scores
+    (finite rows summing to 1), the kernel's log-mel at that shape within
+    ``BF16_TOL`` / ``F32_TOL`` of its plain version, and the eval
+    probabilities of the kernel's spectrogram within ``PROB_TOL`` of the
+    plain front end's through ``float32_copy`` of the model. Adds the
+    kernel's row at this shape (times, bound) to ``kernels``."""
+    from asf_tpu_torch.dsp.logmel import LogMelParams, edge_pad
+    from asf_tpu_torch.engine.pipeline import pack_pathways
+    from asf_tpu_torch.ops import logmel as ops
+    from asf_tpu_torch.tools import predict
+
+    out = cfg.OUTPUT_DIR
+    os.makedirs(out, exist_ok=True)
+    yaml_path = os.path.join(out, "predict.yaml")
+    with open(yaml_path, "w") as f:
+        f.write(cfg.dump())
+    npz = os.path.join(out, "predict_scores.npz")
+    if os.path.exists(npz):
+        os.remove(npz)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    preds = predict.main([wav, "--cfg", yaml_path, "--device", TOOLS_DEVICE])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    wall = time.perf_counter() - t0
+
+    p = LogMelParams(cfg, TOOLS_DEVICE)
+    wave = torch.from_numpy(predict.read_audio(cfg, wav)).to(TOOLS_DEVICE)
+    n_samples = wave.shape[0]
+    geo = p.geometry(n_samples)
+    name = p.kernel(geo["n_frames"]).__name__
+    t_out = predict.out_frames(cfg, n_samples, p.hop)
+    print(f"[tools] {tag}: predict.main in {wall:.2f} s; {n_samples} samples, the kernel over "
+          f"1 x {geo['n_frames']} frames ({t_out} after the ALPHA rounding or the edge "
+          f"padding), launches {launches}: {name}", flush=True)
+    check(launches == {n: int(n == name) for n in REPLACES},
+          f"{tag}: launches {launches}, expected one of {name}")
+    saved = np.load(npz)
+    heads = ["verb", "noun"] if len(cfg.MODEL.NUM_CLASSES) > 1 else ["class"]
+    check(sorted(saved.files) == sorted(heads), f"{tag}: npz holds {saved.files}")
+    for head, pr, n_cls in zip(heads, preds, cfg.MODEL.NUM_CLASSES):
+        check(pr.shape == (1, n_cls) and np.array_equal(saved[head], pr)
+              and bool(np.isfinite(pr).all()) and abs(float(pr.sum()) - 1) <= 1e-3,
+              f"{tag}: {head} scores {pr.shape}, sum {pr.sum()}")
+
+    kernel, plain = getattr(ops, name), getattr(ops, f"{name}_plain")
+    args = (wave[None].to(p.dtype).contiguous(), p.w_cos, p.w_sin, p.mel_w)
+    with torch.inference_mode():
+        got = kernel(*args, **geo)
+        want = plain(*args, **geo)
+    err = (got - want).abs()
+    max_err, mean_err = err.max().item(), err.mean().item()
+    if p.fast:
+        check(max_err <= BF16_TOL[0] and mean_err <= BF16_TOL[1],
+              f"{tag}: log-mel max {max_err} mean {mean_err} > {BF16_TOL}")
+    else:
+        check(max_err <= F32_TOL, f"{tag}: log-mel max {max_err} > {F32_TOL}")
+    ms = cuda_ms(lambda: kernel(*args, **geo), reps=10)
+    cold = cold_ms(lambda: kernel(*args, **geo), flush, reps=7)
+    plain_ms = cuda_ms(lambda: plain(*args, **geo), reps=3, runs=3)
+    row = dict(ms=ms, cold_ms=cold, plain_ms=plain_ms, max_abs_err=max_err,
+               **kernel_work(p, args, geo, card))
+    row["tflops"] = row["gflop"] / ms
+    kernels[name]["rows"][(f"predict {tag}", 1)] = row
+    kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], max_err)
+    plan = ""
+    if not p.fast:
+        frames, splits = ops.f32_device_plan(1, geo["n_frames"], geo["hop"], p.ksup,
+                                             p.w_cos.shape[1], TOOLS_DEVICE)
+        plan = f"; plan {frames} frames a block x {splits} frequency slice(s)"
+    else:
+        tiles = -(-geo["n_frames"] // ops.tc_frames_per_block(geo["hop"], p.ksup))
+        n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = f"; {tiles} blocks on {n_sms} SMs ({tiles / n_sms:.2f} waves)"
+    print(f"[kernel] {name} predict {tag} 1 x {geo['n_frames']} frames: max_abs_err "
+          f"{max_err:.3g} mean {mean_err:.3g} | {ms:.4f} ms warm, {cold:.4f} ms cold (plain "
+          f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+          f"{row['bound_ms'] / ms:.3f} of it; {row['tflops']:.2f} TFLOP/s){plan} | {card}",
+          flush=True)
+
+    # the plain version of the kernel (``want``) is the front end the gate
+    # judges against: logmel_f32_plain or logmel_bf16_plain, as in phase 3
+    model = predict.load_model(cfg, TOOLS_DEVICE)
+    twin = float32_copy(model, cfg)
+
+    def probs(spec_or_paths):
+        paths = (spec_or_paths if isinstance(spec_or_paths, list)
+                 else pack_pathways(cfg, edge_pad(spec_or_paths, None, p.hop, t_out)))
+        out = twin(paths)
+        return list(out) if isinstance(out, (list, tuple)) else [out]
+
+    with torch.inference_mode():
+        ref = probs(want)
+        judged = probs(predict.load_audio(cfg, wav, TOOLS_DEVICE))
+        control = probs(want * (1 + CONTROL))
+    gate = max((a - b).abs().max().item() for a, b in zip(judged, ref))
+    ctrl = max((a - b).abs().max().item() for a, b in zip(control, ref))
+    bf16 = max(float(np.abs(a - b.float().cpu().numpy()).max()) for a, b in zip(preds, ref))
+    print(f"[tools] {tag}: probabilities of the kernel's spectrogram against {plain.__name__}'s "
+          f"through a float32 copy of the model: max abs {gate:.3g} (gated at {PROB_TOL}); the "
+          f"plain log-mel {CONTROL:.0%} off: {ctrl:.3g} (not gated); predict's bf16 model "
+          f"against the float32 copy on the plain one: {bf16:.3g} (not gated)", flush=True)
+    check(gate <= PROB_TOL, f"{tag}: probabilities differ by {gate} > {PROB_TOL}")
+    del model, twin
+    return launches
+
+
+def write_main_originals(root: str, epic_root: str, n_verbs: int) -> dict:
+    """``main``'s inputs beside phase 7's lists: verb and noun class csvs
+    (the verbs of ``pddl/domain.pddl`` first), phase 7's train and val rows
+    (lists of dicts with ``narration_id``) as the original lists; returns
+    the ``EPICKITCHENS`` keys that name them."""
+    import csv
+
+    from asf_tpu_torch.state.pddl import parse_pddl
+
+    actions, _ = parse_pddl(str(ROOT / "pddl" / "domain.pddl"))
+    names = [a.name for a in actions]
+    verbs = names + [f"verb{i}" for i in range(len(names), 97)]
+    for fname, keys in (("verbs.csv", verbs), ("nouns.csv", [f"noun{i}" for i in range(300)])):
+        with open(os.path.join(root, fname), "w", newline="") as f:
+            w = csv.writer(f, lineterminator="\n")
+            w.writerow(["id", "key"])
+            w.writerows(enumerate(keys))
+    return {"VERBS_FILE": os.path.join(root, "verbs.csv"),
+            "NOUNS_FILE": os.path.join(root, "nouns.csv"),
+            "ORIGINAL_TRAIN_LIST": os.path.join(epic_root, "epic_train.pkl"),
+            "ORIGINAL_VAL_LIST": os.path.join(epic_root, "epic_val.pkl"),
+            "VERBS": verbs[:n_verbs]}
+
+
+def phase_main(card: str, vgg_ckpt: str, epic_root: str) -> tuple[dict, str]:
+    """``python -m asf_tpu_torch.main``'s ``main`` with ``--train`` in this
+    process: the preparation from list-of-dict originals, one epoch
+    fine-tuned from ``vgg_ckpt`` with the observers and the profiler, then
+    the test with a config read afresh; returns its launch counts and the
+    processed val list."""
+    from asf_tpu_torch import main as port_main
+    from asf_tpu_torch.entry import epic_cfg
+    from asf_tpu_torch.engine.steps import watch_name
+    from asf_tpu_torch.tools.loop_probe import StatsLog
+
+    root = os.path.join(epic_root, "main")
+    os.makedirs(root)
+    cfg = epic_cfg()
+    ek = cfg.EPICKITCHENS
+    for k, v in write_main_originals(root, epic_root, MAIN_VERBS).items():
+        ek[k] = v
+    ek.AUDIO_DATA_FILE = os.path.join(epic_root, "epic_audio")
+    ek.ANNOTATIONS_DIR = root
+    ek.PROCESSED_TRAIN_LIST = os.path.join(root, "full_train.pkl")
+    ek.PROCESSED_VAL_LIST = ek.PROCESSED_TEST_LIST = os.path.join(root, "full_val.pkl")
+    ek.STATE.PDDL_DOMAIN = str(ROOT / "pddl" / "domain.pddl")
+    ek.STATE.PDDL_PROBLEM = str(ROOT / "pddl" / "problem.pddl")
+    ek.STATE.NOUNS_EMBEDDINGS_FILE = os.path.join(root, "nouns_embeddings.pkl")
+    ek.AUGMENT.ENABLE = ek.AUGMENT.BALANCE = True
+    cfg.MODEL.PDDL_ATTRIBUTES = os.path.join(root, "attributes.csv")
+    cfg.TRAIN.CHECKPOINT_FILE_PATH = vgg_ckpt
+    cfg.SOLVER.MAX_EPOCH = 1
+    cfg.BN.NUM_BATCHES_PRECISE = 2
+    cfg.TEST.NUM_ENSEMBLE_VIEWS = MAIN_VIEWS
+    cfg.DATA_LOADER.NUM_WORKERS = 0
+    cfg.LOG_PERIOD = MAIN_LOG_PERIOD
+    cfg.LOG_MODEL_INFO = False
+    cfg.TENSORBOARD.ENABLE = cfg.WANDB.ENABLE = True
+    cfg.GPU.PROFILE_DIR = os.path.join(root, "profile")
+    cfg.GPU.PROFILE_START_ITER, cfg.GPU.PROFILE_NUM_ITERS = 1, 2
+    cfg.OUTPUT_DIR = os.path.join(root, "out")
+    yaml_path = os.path.join(root, "main.yaml")
+    with open(yaml_path, "w") as f:
+        f.write(cfg.dump())
+
+    stand_in = WandbStandIn()
+    saved_wandb = sys.modules.get("wandb")
+    sys.modules["wandb"] = stand_in
+    try:
+        with StatsLog() as stats:
+            torch.cuda.synchronize()
+            zero_launches()
+            t0 = time.perf_counter()
+            port_main.main({"config": yaml_path, "train": True, "test": False,
+                            "device": TOOLS_DEVICE})
+            torch.cuda.synchronize()
+            launches = read_launches()
+            wall = time.perf_counter() - t0
+    finally:
+        if saved_wandb is None:
+            sys.modules.pop("wandb", None)
+        else:
+            sys.modules["wandb"] = saved_wandb
+
+    with open(ek.PROCESSED_TRAIN_LIST, "rb") as f:
+        train_rows = pickle.load(f)
+    with open(ek.PROCESSED_VAL_LIST, "rb") as f:
+        val_rows = pickle.load(f)
+    keep = set(range(MAIN_VERBS))
+    check(isinstance(train_rows, list) and train_rows and all(
+        r["verb_class"] in keep and "narration_id" in r and r["noun_embedding"].shape == (1, 512)
+        for r in train_rows + val_rows), "the processed lists: rows of other verbs or keys missing")
+    transformed = sum(r["transformation"] != "none" for r in train_rows)
+    with open(cfg.MODEL.PDDL_ATTRIBUTES) as f:
+        attributes = f.read().splitlines()
+    check(attributes[0] == "attribute" and len(attributes) > 1, f"attributes.csv {attributes[:3]}")
+    batch = cfg.TRAIN.BATCH_SIZE
+    n_train, n_val = len(train_rows) // batch, -(-len(val_rows) // batch)
+    n_test = -(-len(val_rows) * MAIN_VIEWS // cfg.TEST.BATCH_SIZE)
+    want = n_train + min(2, n_train) + n_val + n_test
+    print(f"[tools] main --train: {wall:.1f} s; prepared {len(train_rows)} train rows "
+          f"({transformed} augmented copies) and {len(val_rows)} val rows of {MAIN_VERBS} verbs, "
+          f"{len(attributes) - 1} attributes; launches {launches} ({n_train} train, "
+          f"{min(2, n_train)} precise BN, {n_val} val, {n_test} test batches)", flush=True)
+    check(launches == {n: (want if n == "logmel_bf16" else 0) for n in REPLACES},
+          f"main: launches {launches}, expected {want} of logmel_bf16")
+    with open(os.path.join(cfg.OUTPUT_DIR, "scores", "test_scores.pkl"), "rb") as f:
+        scores = pickle.load(f)
+    check(scores["verb_output"].shape == (len(val_rows), 97)
+          and scores["noun_output"].shape == (len(val_rows), 300)
+          and list(scores["narration_id"]) == [r["narration_id"] for r in val_rows],
+          f"main's score pickle: {scores['verb_output'].shape}")
+    for head in ("verb_output", "noun_output"):
+        sums = scores[head].sum(axis=1)
+        check(bool((np.abs(sums - MAIN_VIEWS) <= 1e-3).all()), f"{head} rows sum to {sums}")
+
+    live = ["wandb (a stand-in module)"] if any(c[0] == "init" for c in stand_in.calls) else []
+    disabled = [w for w in stats.warnings if w.startswith(("TensorBoard disabled",
+                                                           "wandb disabled"))]
+    print(f"[tools] observers: live sinks {live}; {disabled}", flush=True)
+    check(live, "the W&B stand-in was not initialised")
+    ckpt = torch.load(os.path.join(cfg.OUTPUT_DIR, "checkpoints", "checkpoint_epoch_00001.pyth"),
+                      map_location="cpu", weights_only=False)["model_state"]
+    sizes = {watch_name(k, v.dim()): v.numel() for k, v in ckpt.items()}
+    hist_steps, leaves = [], 0
+    for kind, *rest in stand_in.calls:
+        if kind == "log" and any(k.startswith("gradients/") for k in rest[0]):
+            payload, step = rest
+            hist_steps.append(step)
+            for name, h in payload.items():
+                counts, edges = h.np_histogram
+                check(int(counts.sum()) == sizes[name.split("/", 1)[1]] and len(edges) == 65,
+                      f"histogram {name} at step {step}: counts sum to {counts.sum()}")
+                leaves += 1
+    scalars = sorted({k for kind, *rest in stand_in.calls if kind == "log" for k in rest[0]
+                      if k.startswith(("Train/", "Val/"))})
+    print(f"[tools] W&B stand-in: histograms at steps {hist_steps} ({leaves} leaves, each "
+          f"one's counts summing to its size); scalars {scalars}", flush=True)
+    check(hist_steps == list(range(0, n_train, MAIN_LOG_PERIOD)),
+          f"histograms at {hist_steps}, expected every {MAIN_LOG_PERIOD} steps of {n_train}")
+    check("Train/loss" in scalars and "Val/verb_top1_acc" in scalars, f"scalars {scalars}")
+
+    traces = sorted(os.listdir(cfg.GPU.PROFILE_DIR))
+    check(len(traces) == 1, f"profiler traces {traces}")
+    with open(os.path.join(cfg.GPU.PROFILE_DIR, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    hits = [e for e in events if "logmel_tc_kernel" in str(e.get("name", ""))]
+    print(f"[tools] GPU.PROFILE_DIR: {traces[0]}, {len(events)} events, {len(hits)} of "
+          f"logmel_tc_kernel (device time {sum(e.get('dur', 0) for e in hits):.1f} us)",
+          flush=True)
+    # One launch a traced step; a trace of ~1e5 events has held 1 or 2 of the 2
+    # (a kernel of a step is lost at times; the same launches alone are all kept).
+    check(1 <= len(hits) <= cfg.GPU.PROFILE_NUM_ITERS,
+          f"the profiler trace holds {len(hits)} logmel_tc_kernel events for "
+          f"{cfg.GPU.PROFILE_NUM_ITERS} traced steps of one launch each")
+    return launches, cfg
+
+
+def phase_tools(card: str, kernels: dict, loop_cfg, epic_ckpt: str, root: str) -> dict:
+    """Phase 12: ``predict`` over whole files, ``main`` with the preparation,
+    the observers and the profiler, ``stress_test`` and the spectrogram
+    dumper's pathways; returns the launch counts of each path."""
+    from scipy.io import wavfile
+
+    from asf_tpu_torch.checkpoint import manager as cu
+    from asf_tpu_torch.data.epickitchens import EpicKitchens
+    from asf_tpu_torch.entry import epic_cfg, wide_window
+    from asf_tpu_torch.tools.stress_test import stress_test
+    from asf_tpu_torch.visualization.spectrograms import _item_pathways
+
+    t0 = time.perf_counter()
+    flush = torch.empty(FLUSH_BYTES // 4, device=TOOLS_DEVICE)
+    video = os.path.join(root, "epic_audio", "P01_00.wav")
+    vgg_ckpt = cu.get_last_checkpoint(loop_cfg.OUTPUT_DIR)
+    paths = {}
+    cfg = epic_cfg()
+    # epic_cfg's head pools 400 // 8 // 4 = 12 slow and 400 // 4 = 100 fast
+    # frames, not in the ratio ALPHA = 8: over a whole file the two pathways
+    # pool to 62 and 60 windows and the head's concatenation raises, in both
+    # packages. At 384 the pools are 12 and 96; the weights do not depend on it.
+    cfg.AUDIO_DATA.NUM_FRAMES = PREDICT_EPIC_FRAMES
+    cfg.TEST.CHECKPOINT_FILE_PATH = epic_ckpt
+    cfg.OUTPUT_DIR = os.path.join(root, "predict_epic")
+    paths["predict bf16"] = _predict_case(card, "bf16", cfg, video, kernels, flush)
+    cfg.GPU.DSP_PRECISION = "HIGHEST"
+    paths["predict float32"] = _predict_case(card, "float32", cfg, video, kernels, flush)
+    short = os.path.join(root, "short.wav")
+    wavfile.write(short, 24000, (np.random.default_rng(12).standard_normal(
+        int(24000 * PREDICT_SHORT_SECS)) * 3000).astype(np.int16))
+    vcfg = loop_cfg.clone()
+    vcfg.TEST.CHECKPOINT_FILE_PATH = vgg_ckpt
+    vcfg.OUTPUT_DIR = os.path.join(root, "predict_vgg")
+    paths["predict short"] = _predict_case(card, "short flagship", vcfg, short, kernels, flush)
+    wcfg = wide_window(vcfg.clone())
+    wcfg.OUTPUT_DIR = os.path.join(root, "predict_wide")
+    paths["predict wide"] = _predict_case(card, "wide", wcfg, video.replace("P01_00", "P01_01"),
+                                          kernels, flush)
+    del flush
+    t_main = time.perf_counter()
+    main_launches, main_cfg = phase_main(card, vgg_ckpt, root)
+    paths["main"] = main_launches
+    t_stress = time.perf_counter()
+    rate = stress_test(STRESS_N, STRESS_SECS, device=TOOLS_DEVICE)
+    print(f"[tools] stress_test n={STRESS_N}, {STRESS_SECS} s: {rate:.1f} TFLOP/s (bf16 "
+          f"torch.matmul chains, the last interval) | {card}", flush=True)
+    check(rate > 0, "stress_test gave no rate")
+
+    item = EpicKitchens(main_cfg, "val")[0]
+    torch.cuda.synchronize()
+    zero_launches()
+    got = _item_pathways(main_cfg, item, TOOLS_DEVICE)
+    torch.cuda.synchronize()
+    paths["spectrograms"] = read_launches()
+    want = _item_pathways(main_cfg, item, "cpu")  # the plain bf16 front end
+    errs = [np.abs(g - w) for g, w in zip(got, want)]
+    max_err, mean_err = max(e.max() for e in errs), max(e.mean() for e in errs)
+    print(f"[tools] the spectrogram dumper's _item_pathways: launches {paths['spectrograms']}, "
+          f"shapes {[g.shape for g in got]}, max abs {max_err:.3g} mean {mean_err:.3g} from the "
+          f"plain pipeline on the CPU (gated at {BF16_TOL})", flush=True)
+    check(paths["spectrograms"] == {n: int(n == "logmel_bf16") for n in REPLACES},
+          f"_item_pathways launches {paths['spectrograms']}")
+    check(max_err <= BF16_TOL[0] and mean_err <= BF16_TOL[1],
+          f"_item_pathways: max {max_err} mean {mean_err} > {BF16_TOL}")
+    print(f"[smoke] phase 12: {t_main - t0:.1f} s for predict, {t_stress - t_main:.1f} s for "
+          f"main, {time.perf_counter() - t_stress:.1f} s for stress_test and the dumper | {card}",
+          flush=True)
+    return paths
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card, sass = phase_device()
@@ -2842,13 +3262,15 @@ def main() -> None:
         rank_launches = phase_ranks(card, loop_cfg, run1_losses, plain_sync)
         print(f"[smoke] phase 11: {t_ranks - t11:.1f} s for the batch-norm types, "
               f"{time.perf_counter() - t_ranks:.1f} s across ranks", flush=True)
+        tool_launches = phase_tools(card, kernels, loop_cfg, epic_ckpt, root)
     check_instructions(card, sass, kernels)
     paths = {"eval": eval_launches, **{f"train {k}": v for k, v in train_launches.items()},
              "train(cfg)": loop_launches, "test(cfg)": test_launches,
              "epic train(cfg)": epic_train_launches, "epic test(cfg)": epic_test_launches,
              "gru train(cfg)": gru_train_launches, "gru test(cfg)": gru_test_launches,
              **state_launches, **resnet_launches, "slide test(cfg)": slide_launches,
-             **{f"train {k}": v for k, v in bn_launches.items()}, **rank_launches}
+             **{f"train {k}": v for k, v in bn_launches.items()}, **rank_launches,
+             **tool_launches}
     line = []
     for name, res in kernels.items():
         geometry, batch = LINE_BATCH[name]

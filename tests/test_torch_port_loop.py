@@ -6,7 +6,9 @@ precise BN and ``train(cfg)`` itself.
 (float32, the HIGHEST front end, K1 in interpret mode on the JAX side,
 SpecAugment and dropout off, precise BN on) for one epoch of 3 steps, then
 validate on 10 clips in batches of 4, 4 and 2. The JAX side runs with
-``ASF_MAXPOOL_SAS_BWD=1``, as ``tests/test_torch_port_train.py`` explains.
+``ASF_MAXPOOL_SAS_BWD=1``, as ``tests/test_torch_port_train.py`` explains,
+and with TensorBoard and the val plots on, so that the port's observers are
+held to its event files.
 """
 
 import json
@@ -23,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
 from torch import nn
 
 from asf_tpu.checkpoint import manager as jax_cu
@@ -378,13 +381,43 @@ def test_precise_bn_matches_jax(vgg_root, start_pyth, tmp_path):  # noqa: F811
     assert all(m.momentum == 0.1 for m in model.modules() if isinstance(m, nn.BatchNorm2d))
 
 
+def _observed(cfg, root):
+    """TensorBoard on, with the val confusion matrix and top-k histograms
+    under the class names of ``root/class_names.json``."""
+    names = os.path.join(root, "class_names.json")
+    with open(names, "w") as f:
+        json.dump({f"class{i}": i for i in range(6)}, f)
+    cfg.TENSORBOARD.ENABLE = True
+    cfg.TENSORBOARD.CLASS_NAMES_PATH = names
+    cfg.TENSORBOARD.CONFUSION_MATRIX.ENABLE = True
+    cfg.TENSORBOARD.HISTOGRAM.ENABLE = True
+    cfg.TENSORBOARD.HISTOGRAM.TOPK = 3
+    return cfg
+
+
+def _scalars(log_dir):
+    """{tag: [(step, value)]} of the event files in ``log_dir``."""
+    acc = EventAccumulator(log_dir, size_guidance={"scalars": 0})
+    acc.Reload()
+    return {tag: [(e.step, e.value) for e in acc.Scalars(tag)] for tag in acc.Tags()["scalars"]}
+
+
+def _images(log_dir):
+    acc = EventAccumulator(log_dir, size_guidance={"images": 0})
+    acc.Reload()
+    return {tag: [e.step for e in acc.Images(tag)] for tag in acc.Tags()["images"]}
+
+
 @pytest.fixture(scope="module")
 def jax_run(vgg_root, start_pyth, tmp_path_factory):  # noqa: F811
-    """``asf_tpu.engine.train`` from ``start.pyth``: its cfg, the variables of
-    its last checkpoint (Orbax) and its ``json_stats`` records."""
-    jcfg, _ = _train_cfgs(vgg_root, str(tmp_path_factory.mktemp("jax_run")))
+    """``asf_tpu.engine.train`` from ``start.pyth``, with TensorBoard and the
+    val plots on (``_observed``): its cfg, the variables of its last
+    checkpoint (Orbax) and its ``json_stats`` records."""
+    root = str(tmp_path_factory.mktemp("jax_run"))
+    jcfg, _ = _train_cfgs(vgg_root, root)
     jcfg.TRAIN.CHECKPOINT_FILE_PATH = start_pyth
     jcfg.TRAIN.CHECKPOINT_EPOCH_RESET = True
+    _observed(jcfg, root)
     with pytest.MonkeyPatch.context() as mp, captured("asf_tpu") as log:
         mp.setenv("ASF_MAXPOOL_SAS_BWD", "1")  # see the module docstring
         jax_train(jcfg)
@@ -428,6 +461,75 @@ def test_train_matches_jax_train(vgg_root, start_pyth, jax_run, tmp_path):  # no
         assert len(_records(plog.stats, kind)) == len(_records(jstats, kind)) == 3
     for name in ("checkpoint_epoch_00001.pyth", "checkpoint_best.pyth"):
         assert os.path.exists(os.path.join(pcfg.OUTPUT_DIR, "checkpoints", name))
+
+
+LOSS_TOL = 1e-4  # Train/loss against the JAX run: test_train_matches_jax_train's bound
+NORM_TOL = 1e-4  # Train/grad_norm and Train/param_norm, relative: the same 3 steps
+
+
+def test_train_logs_the_jax_scalars_plots_histograms_and_a_trace(
+        vgg_root, start_pyth, jax_run, tmp_path, monkeypatch):  # noqa: F811
+    """``train(cfg)`` with TensorBoard and a stand-in W&B against the JAX
+    run's event files: ``Train/*`` at iterations 0-2 (``LOG_PERIOD`` 1) and
+    ``Val/top1_acc`` at step 3, the same tags and steps, ``Train/loss``
+    within LOSS_TOL, the norms within NORM_TOL, ``Train/lr`` and ``Val/*``
+    equal; the same val figures at step 0 (the epoch); the watch histograms
+    at steps 0-2, named by the JAX tree, each leaf's counts summing to its
+    size; and a Chrome trace of iteration 1 in ``GPU.PROFILE_DIR``."""
+    from chip_smoke import WandbStandIn
+
+    wandb = WandbStandIn()
+    monkeypatch.setitem(sys.modules, "wandb", wandb)
+    _, pcfg = _train_cfgs(vgg_root, str(tmp_path))
+    _observed(pcfg, str(tmp_path))
+    pcfg.TRAIN.CHECKPOINT_FILE_PATH = start_pyth
+    pcfg.TRAIN.CHECKPOINT_EPOCH_RESET = True
+    pcfg.DATA_LOADER.NUM_WORKERS = 0
+    pcfg.WANDB.ENABLE = True
+    pcfg.GPU.PROFILE_DIR = str(tmp_path / "profile")
+    pcfg.GPU.PROFILE_START_ITER = 1
+    pcfg.GPU.PROFILE_NUM_ITERS = 1
+    with captured("asf_tpu_torch") as log:
+        state = train(pcfg, device="cpu")
+    assert not [w for w in log.warnings if "disabled" in w or "not ported" in w], log.warnings
+    jcfg = jax_run[0]
+    jax_dir = os.path.join(jcfg.OUTPUT_DIR, "runs-Vggsound")
+    port_dir = os.path.join(pcfg.OUTPUT_DIR, "runs-Vggsound")
+
+    want, got = _scalars(jax_dir), _scalars(port_dir)
+    assert set(got) == set(want) == {"Train/loss", "Train/grad_norm", "Train/param_norm",
+                                     "Train/lr", "Val/top1_acc"}
+    for tag, series in want.items():
+        assert [s for s, _ in got[tag]] == [s for s, _ in series], tag
+    assert [s for s, _ in got["Train/loss"]] == [0, 1, 2] and got["Val/top1_acc"][0][0] == 3
+    for (_, g), (_, w) in zip(got["Train/loss"], want["Train/loss"]):
+        assert abs(g - w) <= LOSS_TOL, (g, w)
+    for tag in ("Train/grad_norm", "Train/param_norm"):
+        for (_, g), (_, w) in zip(got[tag], want[tag]):
+            assert abs(g - w) <= NORM_TOL * abs(w), (tag, g, w)
+    assert got["Train/lr"] == want["Train/lr"] and got["Val/top1_acc"] == want["Val/top1_acc"]
+    images = _images(port_dir)
+    assert images == _images(jax_dir)
+    assert "Confusion Matrix" in images and "Val/topk_hist/class0" in images
+
+    hist_logs = [(payload, step) for kind, *rest in wandb.calls if kind == "log"
+                 for payload, step in [rest] if any(k.startswith("gradients/") for k in payload)]
+    assert [step for _, step in hist_logs] == [0, 1, 2]
+    sd = state.model.state_dict()
+    tree = torch_state_to_flax({k: v.numpy() for k, v in sd.items()})["params"]
+    flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+    sizes = {jax_steps._watch_name(p): int(np.prod(np.shape(leaf))) for p, leaf in flat}
+    for payload, _ in hist_logs:
+        assert set(payload) == {f"{kind}/{p}" for kind in ("parameters", "gradients")
+                                for p in sizes}
+        for name, hist in payload.items():
+            counts, edges = hist.np_histogram
+            assert counts.sum() == sizes[name.split("/", 1)[1]] and len(edges) == 65
+
+    traces = os.listdir(pcfg.GPU.PROFILE_DIR)
+    assert traces == ["train_trace_iters_1-1.json"]
+    with open(os.path.join(pcfg.GPU.PROFILE_DIR, traces[0])) as f:
+        assert json.load(f)["traceEvents"]
 
 
 def test_reference_pyth_loads_into_the_port(vgg_root, jax_run, tmp_path):  # noqa: F811

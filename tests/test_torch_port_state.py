@@ -54,7 +54,9 @@ from asf_tpu_torch.data.records import EpicKitchensAudioRecordWithPDDL
 from asf_tpu_torch.engine import metrics, steps
 from asf_tpu_torch.engine import test as port_test
 from asf_tpu_torch.engine import train
-from asf_tpu_torch.engine.train_loop import AlertLog, check_state_alerts
+from asf_tpu_torch.config import get_cfg as port_get_cfg
+from asf_tpu_torch.engine.observers import ScalarLogger
+from asf_tpu_torch.engine.train_loop import check_state_alerts
 from asf_tpu_torch.entry import epic_gru_state_cfg, epic_state_cfg
 from asf_tpu_torch.models import build_model
 from asf_tpu_torch.models.gru import GRUResNetBasicHead
@@ -300,14 +302,15 @@ def test_state_metrics_match_sklearn(case):
 ])
 def test_state_alerts_match_jax(parts, stats, want):
     """``tests/test_alerts.py``'s three cases against the JAX package's
-    alerts, and the warning the port's sink logs; no sink, no alert."""
+    alerts, and the warning the port's ``ScalarLogger`` without sinks logs;
+    no sink, no alert."""
     got, jsink = FakeSink(), FakeSink()
     check_state_alerts(parts, stats, got)
     jax_check_state_alerts(parts, stats, jsink)
     assert got.alerts == jsink.alerts and [t for t, _ in got.alerts] == want
     check_state_alerts(parts, stats, None)
     with captured("asf_tpu_torch") as log:
-        check_state_alerts(parts, stats, AlertLog())
+        check_state_alerts(parts, stats, ScalarLogger(port_get_cfg()))
     assert log.warnings == [f"{t}: {m}" for t, m in got.alerts]
 
 

@@ -111,3 +111,43 @@ def ddp_families(cfg, device, cfgs, out):
                      "no_grad": [k for k, p in state.model.named_parameters()
                                  if p.requires_grad and p.grad is None]}
     torch.save(got, os.path.join(out, f"ddp_rank{tdist.get_rank()}.pt"))
+
+
+class PlotRecorder:
+    """A TensorBoard writer that keeps the rows ``eval_epoch`` plots."""
+
+    def __init__(self):
+        self.rows = []
+
+    def add_confusion_matrix(self, preds, labels, **kwargs):
+        self.rows.append((preds, labels))
+
+    def add_topk_histograms(self, preds, labels, **kwargs):
+        pass
+
+
+def plot_rows(cfg, device):
+    """``eval_epoch`` of a seeded model over the val split with the plots
+    on; rank 0 (or the one process) pickles the rows its writer got to
+    ``OUTPUT_DIR/plot_rows.pkl``."""
+    import pickle
+    import types
+
+    from asf_tpu_torch.data.loader import construct_loader
+    from asf_tpu_torch.engine.eval_loop import build_val_meter, eval_epoch
+    from asf_tpu_torch.engine.steps import make_eval_step
+    from asf_tpu_torch.models import build_model
+    from asf_tpu_torch.parallel import dist
+
+    model = build_model(cfg, device, torch.Generator().manual_seed(3))
+    loader = construct_loader(cfg, "val")
+    sink = types.SimpleNamespace(tb=PlotRecorder() if dist.is_primary() else None)
+    try:
+        eval_epoch(loader, model, make_eval_step(cfg, device), build_val_meter(cfg, len(loader)),
+                   0, cfg, device, sink)
+    finally:
+        loader.close()
+    if dist.is_primary():
+        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+        with open(os.path.join(cfg.OUTPUT_DIR, "plot_rows.pkl"), "wb") as f:
+            pickle.dump(sink.tb.rows, f)
