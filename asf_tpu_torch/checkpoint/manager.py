@@ -19,7 +19,12 @@ it cannot give (the heads) keeps its initial value with a warning.
 In a process group only global rank 0 writes a checkpoint (the model's own
 ``state_dict``, never its ``DistributedDataParallel`` wrapper's, so no name
 takes a ``module.`` prefix), and every rank then waits at a barrier, so
-that an auto-resume on any rank reads the same file. Every rank loads.
+that an auto-resume on any rank reads the same file. Every rank loads. On
+a data x model grid (``GPU.MODEL_PARALLEL``) the ranks of rank 0's model
+group first gather each sharded leaf and its optimizer state whole
+(``parallel/tensor.py:full_state_dicts``), so the file is the one a single
+process writes; every rank loads whole tensors into the whole model, which
+``train(cfg)`` and ``test(cfg)`` shard after the load.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..parallel import dist
+from ..parallel import dist, tensor
 from ..utils.logging import get_logger
 from .pyth_names import load_into
 
@@ -74,19 +79,22 @@ def save_checkpoint(path_to_job: str, state, epoch: int, cfg, name: Optional[str
     that follows."""
     path = (os.path.join(_ckpt_root(path_to_job), f"{name}.pyth") if name
             else get_path_to_checkpoint(path_to_job, epoch + 1))
-    if dist.is_primary():
-        _write(path, state, epoch, cfg)
+    if dist.data_rank(cfg) == 0:  # rank 0's model group (rank 0 alone at GPU.MODEL_PARALLEL 1)
+        model_state, optimizer_state = tensor.full_state_dicts(
+            state.model, state.optimizer, tensor.model_shard(cfg))
+        if dist.is_primary():
+            _write(path, state, epoch, cfg, model_state, optimizer_state)
     dist.barrier()
     return path
 
 
-def _write(path: str, state, epoch: int, cfg) -> None:
+def _write(path: str, state, epoch: int, cfg, model_state: dict, optimizer_state: dict) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     payload = {
         "epoch": epoch,
         "step": int(state.step),
-        "model_state": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
-        "optimizer_state": state.optimizer.state_dict(),
+        "model_state": model_state,
+        "optimizer_state": optimizer_state,
         "cfg": cfg.to_json(),
         "generator_state": state.generator.get_state(),
     }

@@ -285,6 +285,11 @@ _C.GPU.WATCH_HISTOGRAMS = True
 _C.GPU.PROFILE_DIR = ""
 _C.GPU.PROFILE_START_ITER = 10
 _C.GPU.PROFILE_NUM_ITERS = 5
+# Tensor-parallel size: the ranks of a model group, over which the wide conv
+# and dense leaves are sharded on their output channels (parallel/tensor.py).
+# A host runs NUM_GPUS x MODEL_PARALLEL ranks, a data x model grid; NUM_GPUS
+# stays the data-parallel size a host. 1 = pure data parallel.
+_C.GPU.MODEL_PARALLEL = 1
 
 
 def _assert_and_infer_cfg(cfg: CfgNode) -> CfgNode:

@@ -43,11 +43,12 @@ The last val batch keeps its real rows only (no padding, no mask): the JAX
 package pads it because XLA compiles static shapes; the port computes the
 metrics on the rows it has. The host-to-card copy is ``data/prefetch.py``'s.
 
-With N = ``NUM_GPUS`` ranks on a host (``parallel/dist.py``), local rank r
-reads only rows ``[r*B/N, (r+1)*B/N)`` of each host batch of B rows, the
-rows the JAX package's ``shard_batch`` puts on its device r: the items are
-drawn per index, so a rank's rows are bit for bit those of the whole
-batch. A ragged host batch is first padded to B rows by repeating its last
+With N = ``NUM_GPUS`` data ranks on a host (``parallel/dist.py``), local
+data rank r reads only rows ``[r*B/N, (r+1)*B/N)`` of each host batch of B
+rows, the rows the JAX package's ``shard_batch`` puts on its data index r:
+the items are drawn per index, so a rank's rows are bit for bit those of
+the whole batch. On a data x model grid (``GPU.MODEL_PARALLEL``) every rank
+of a model group reads its data rank's rows. A ragged host batch is first padded to B rows by repeating its last
 index, as ``pad_batch_to`` repeats its last row, and each rank's batch then
 carries ``n_real``, its real rows (0 at times), and ``host_rows``, the host
 batch's. Chains pad to the bucket of the host batch's longest chain, so
@@ -199,8 +200,8 @@ class _Chunks(tud.Sampler):
 class AsfLoader:
     """Iterable over collated numpy batches; with ``num_workers > 0`` its
     worker processes start at the first pass and live until ``close``.
-    ``rank``/``world_size`` split the data over hosts; ``local_rank`` of
-    ``local_size`` takes its rows of each host batch."""
+    ``rank``/``world_size`` split the data over hosts; local data rank
+    ``local_rank`` of ``local_size`` takes its rows of each host batch."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool, drop_last: bool,
                  num_workers: int = 8, seed: int = 0, rank: int = 0, world_size: int = 1,

@@ -21,13 +21,16 @@ package's ``DeviceValCache`` and its fused K-step path are not ported.
 
 Across ranks each rank scores its rows of each host batch (a padded last
 batch: its ``n_real`` real rows, none at times), the correct counts are
-summed over the ranks on the card with one ``all_reduce`` and divided by
-the global batch's real rows, so every rank's meter takes the numbers of
-the JAX package's one program over the whole batch
+summed over the data ranks on the card with one ``all_reduce`` and divided
+by the global batch's real rows, so every rank's meter takes the numbers
+of the JAX package's one program over the whole batch
 (``asf_tpu/engine/eval_loop.py:313-376``). The state head's numpy metrics
 do not add up over ranks: at the flush each batch's state inputs are
-gathered from every rank and rank 0 scores the real rows; so are the
-plots' rows, which every rank gathers when the config asks for plots.
+gathered from every data rank and rank 0 scores the real rows; so are the
+plots' rows, which every rank gathers when the config asks for plots. On a
+data x model grid (``GPU.MODEL_PARALLEL``) the ranks of a model group hold
+the same rows: each rank sums and gathers over its data group, the ranks
+of its model rank, so that each row counts once.
 """
 
 from __future__ import annotations
@@ -52,13 +55,14 @@ def _state_inputs(probs, batch: dict):
 
 
 def _gather_rows(tensors, host_rows: int, cfg):
-    """A batch's row tensors (state inputs, plot rows) of every rank, their
-    real rows in rank order: rank ``h * N + r`` holds rows ``[r * n, (r + 1)
-    * n)`` of host ``h``'s batch of ``host_rows`` real rows (every host's is
-    as long)."""
-    per, gathered = dist.local_size(cfg), [dist.all_gather(t) for t in tensors]
+    """A batch's row tensors (state inputs, plot rows) of every data rank,
+    their real rows in rank order: data rank ``h * N + r`` holds rows ``[r *
+    n, (r + 1) * n)`` of host ``h``'s batch of ``host_rows`` real rows (every
+    host's is as long)."""
+    group = dist.data_group(cfg)
+    per, gathered = dist.local_size(cfg), [dist.all_gather(t, group) for t in tensors]
     n = tensors[0].shape[0]
-    keep = [max(0, min(n, host_rows - (g % per) * n)) for g in range(dist.world_size())]
+    keep = [max(0, min(n, host_rows - (g % per) * n)) for g in range(dist.data_size(cfg))]
     return tuple(torch.cat([t[g, :k] for g, k in enumerate(keep)]) for t in gathered)
 
 
@@ -92,7 +96,7 @@ def eval_epoch(val_loader, model, eval_step, val_meter, cur_epoch, cfg, device,
     log_period = max(1, cfg.LOG_PERIOD)
     multitask = isinstance(val_meter, EPICValMeter)
     with_state = has_state_head(cfg)
-    ranks = dist.world_size()
+    ranks, group = dist.data_size(cfg), dist.data_group(cfg)
     writer = None if scalar_logger is None else scalar_logger.tb
     # the plots' rows: every rank gathers them (the config decides, the same
     # on every rank), the writer (rank 0's) plots
@@ -136,7 +140,7 @@ def eval_epoch(val_loader, model, eval_step, val_meter, cur_epoch, cfg, device,
             counts = torch.stack(_correct(
                 real, {k: v[:n_real] for k, v in batch["labels"].items()}, multitask))
             if ranks > 1:
-                counts = dist.all_reduce_sum(counts)
+                counts = dist.all_reduce_sum(counts, group)
                 rows = host_rows * int(cfg.NUM_SHARDS)  # every host's batch is as long
             accs = counts / rows * 100.0
             val_meter.iter_toc()

@@ -23,7 +23,10 @@ where optax rounds them to float32 (``1 - 0.999`` keeps only ~4 digits
 there), which moves parameters ~1e-5 relative apart within a few steps.
 ``SGD`` and ``Adam`` below are the JAX chain's rules on
 ``torch.optim.Optimizer``; both update the parameters in place, as
-multi-tensor ops.
+multi-tensor ops. On a data x model grid (``parallel/tensor.py``) a
+sharded parameter is this rank's block, and its optimizer state too: the
+rules are elementwise, so they need no collective, and the decay groups go
+by name, which sharding keeps.
 """
 
 from __future__ import annotations

@@ -49,14 +49,15 @@ class InputPipeline:
     With ``train=True`` and ``GPU.SPEC_AUGMENT``, SpecAugment draws from
     ``generator`` (a ``torch.Generator`` on the waveform's device), for the
     global batch of the process group it was built in, and applies this
-    rank's rows of the draws.
+    data rank's rows of the draws (the ranks of a model group apply the
+    same rows).
     """
 
     def __init__(self, cfg, device):
         self.cfg = cfg
         self.params = LogMelParams(cfg, device)
         self.augment = bool(cfg.GPU.SPEC_AUGMENT)
-        self.share = (dist.rank(), dist.world_size())
+        self.share = (dist.data_rank(cfg), dist.data_size(cfg))
 
     @torch.no_grad()
     def __call__(self, waveform: torch.Tensor, n_valid: torch.Tensor,

@@ -34,17 +34,24 @@ that the step never waits for the card.
 
 In a process group the forward goes through ``state.ddp``, the
 ``DistributedDataParallel`` wrapper of ``state.model``, whose backward
-averages the gradients over the ranks (so the norms read the average), and
-the loss parts and accuracies are averaged over the ranks on the device
-(``state_pred_max_abs`` takes their maximum): the global-batch means that
-the JAX package's one program computes. The state loss, a mean over the
-windows each rank keeps (their number differs between ranks), divides its
-rank's sum by the count over the world over the world size
-(``rank_divisor``), so that both averages give the global mean.
+averages the gradients over the data ranks (so the norms read the
+average), and the loss parts and accuracies are averaged over the data
+ranks on the device (``state_pred_max_abs`` takes their maximum): the
+global-batch means that the JAX package's one program computes. The state
+loss, a mean over the windows each rank keeps (their number differs
+between ranks), divides its rank's sum by the count over the data ranks
+over their number (``rank_divisor``), so that both averages give the
+global mean. On a data x model grid (``GPU.MODEL_PARALLEL``,
+``parallel/tensor.py``) a sharded leaf holds this rank's block: the norms
+sum its squares over the model group and count each replicated leaf once,
+and the watch histograms bin its block over the whole leaf's range and sum
+its counts over the model group, so that they still add up to the leaf's
+size.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -52,7 +59,7 @@ import torch
 from torch import nn
 
 from ..models import losses as losses_mod
-from ..parallel import dist
+from ..parallel import dist, tensor
 from . import metrics as metrics_mod
 from .optimizer import construct_optimizer, set_lr
 from .pipeline import make_input_pipeline
@@ -112,15 +119,15 @@ def state_of(preds, lengths=None):
     return x_s, lengths
 
 
-def rank_divisor(count: torch.Tensor) -> torch.Tensor:
+def rank_divisor(count: torch.Tensor, ranks: int, group) -> torch.Tensor:
     """The divisor of a masked sum over this rank's rows whose mean over the
-    ranks is the global batch's mean: ``max(count over the world, 1) /
-    world size``, the count summed on the device (one ``all_reduce`` across
-    ranks, none in one process)."""
-    if dist.world_size() == 1:
+    ``ranks`` data ranks of ``group`` (the world when None) is the global
+    batch's mean: ``max(count over them, 1) / ranks``, the count summed on
+    the device (one ``all_reduce`` across ranks, none for one)."""
+    if ranks == 1:
         return count.clamp(min=1)
-    total = dist.all_reduce_sum(count.float().reshape(1))[0]
-    return total.clamp(min=1) / dist.world_size()
+    total = dist.all_reduce_sum(count.float().reshape(1), group)[0]
+    return total.clamp(min=1) / ranks
 
 
 def make_loss_fn(cfg):
@@ -130,6 +137,8 @@ def make_loss_fn(cfg):
     loss_fun = losses_mod.get_loss_func(cfg.MODEL.LOSS_FUNC)
     multitask = is_multitask(cfg)
     with_state = has_state_head(cfg)
+    divisor = functools.partial(rank_divisor, ranks=dist.data_size(cfg),
+                                group=dist.data_group(cfg))
 
     def compute(preds, labels, lengths=None):
         if not multitask:
@@ -142,7 +151,7 @@ def make_loss_fn(cfg):
             loss_noun = loss_fun(preds[1], labels["noun"])
             state_labels = prepare_state_labels(labels["precs"], labels["posts"], lengths,
                                                 x_s.shape[1])
-            loss_state = losses_mod.state_cross_entropy(x_s, state_labels, rank_divisor)
+            loss_state = losses_mod.state_cross_entropy(x_s, state_labels, divisor)
             total = (loss_verb + loss_noun + loss_state) / 3.0
             return total, {"loss": total, "verb_loss": loss_verb, "noun_loss": loss_noun,
                            "state_loss": loss_state}
@@ -184,16 +193,12 @@ def make_device_metrics(cfg):
     return compute
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """``optax.global_norm``: the L2 norm of all the tensors together."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
-
-
-def reduce_over_ranks(values: dict) -> dict:
-    """0-d tensors averaged over the ranks (``state_pred_max_abs``: their
-    maximum), with one ``all_gather`` and no read on the host."""
+def reduce_over_ranks(values: dict, group=None) -> dict:
+    """0-d tensors averaged over the ranks of ``group``, the world when None
+    (``state_pred_max_abs``: their maximum), with one ``all_gather`` and no
+    read on the host."""
     names = list(values)
-    ranks = dist.all_gather(torch.stack([values[k].float() for k in names]))  # (ranks, K)
+    ranks = dist.all_gather(torch.stack([values[k].float() for k in names]), group)  # (ranks, K)
     return {k: ranks[:, i].max() if k == "state_pred_max_abs" else ranks[:, i].mean()
             for i, k in enumerate(names)}
 
@@ -212,22 +217,36 @@ def watch_name(name: str, ndim: int) -> str:
 
 
 @torch.no_grad()
-def watch_summary(tensors: list) -> tuple[torch.Tensor, torch.Tensor]:
+def watch_summary(tensors: list, sharded=None,
+                  shard: Optional[tensor.Shard] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """``(counts (L, 64) int64, ranges (L, 2) float32)`` of L tensors, on
     their device: each one's float32 values binned by the JAX package's rule,
     ``clip(int((x - lo) / max(hi - lo, 1e-12) * 64), 0, 63)`` over its
     ``[lo, hi]``, the bin edges ``linspace(lo, hi, 65)``. The counts are
     added with ``scatter_add_``, which reads nothing back to the host
     (``torch.bincount`` on CUDA reads its input's maximum to size its
-    output)."""
+    output). With a ``shard``, the tensors flagged in ``sharded`` are this
+    rank's blocks: their ranges are taken over the model group and their
+    counts summed over it (every rank of the group calls this alike)."""
     xs = [t.detach().float().reshape(-1) for t in tensors]
-    ranges = torch.stack([torch.stack(torch.aminmax(x)) for x in xs])
+    ranges = [torch.stack(torch.aminmax(x)) for x in xs]
+    rows = [] if shard is None else [i for i, f in enumerate(sharded) if f]
+    if rows:  # each block's (-lo, hi), the maximum over the model group
+        ends = dist.all_reduce_max(torch.stack([torch.stack([-ranges[i][0], ranges[i][1]])
+                                                for i in rows]), shard.group)
+        for j, i in enumerate(rows):
+            ranges[i] = torch.stack([-ends[j, 0], ends[j, 1]])
+    ranges = torch.stack(ranges)
     span = (ranges[:, 1] - ranges[:, 0]).clamp(min=1e-12)
     counts = torch.zeros(len(xs), WATCH_BINS, dtype=torch.int64, device=ranges.device)
     for i, x in enumerate(xs):
         idx = ((x - ranges[i, 0]) / span[i] * WATCH_BINS).to(torch.int32)
         idx = idx.clamp_(0, WATCH_BINS - 1).long()
         counts[i].scatter_add_(0, idx, torch.ones_like(idx))
+    if rows:
+        summed = dist.all_reduce_sum(torch.stack([counts[i] for i in rows]), shard.group)
+        for j, i in enumerate(rows):
+            counts[i] = summed[j]
     return counts, ranges
 
 
@@ -273,6 +292,7 @@ def make_train_step(cfg, device, watch: bool = False):
     loss_fn = make_loss_fn(cfg)
     device_metrics = make_device_metrics(cfg)
     watch_period = max(1, int(cfg.LOG_PERIOD))
+    data_group, shard = dist.data_group(cfg), tensor.model_shard(cfg)
 
     def train_step(state: TrainState, batch: dict, lr: float):
         model, optimizer = state.model, state.optimizer
@@ -290,18 +310,23 @@ def make_train_step(cfg, device, watch: bool = False):
             parts = {k: v.detach() for k, v in parts.items()}
             stats = device_metrics(preds, batch["labels"])
             if dist.is_initialized():
-                reduced = reduce_over_ranks({**parts, **stats})
+                reduced = reduce_over_ranks({**parts, **stats}, data_group)
                 parts = {k: reduced[k] for k in parts}
                 stats = {k: reduced[k] for k in stats}
-            parts["grad_norm"] = global_norm(p.grad for p in params)
-            parts["param_norm"] = global_norm(model.parameters())
+            everything = list(model.parameters())
+            parts["grad_norm"] = tensor.global_norm((p.grad for p in params),
+                                                    map(tensor.is_sharded, params), shard)
+            parts["param_norm"] = tensor.global_norm(everything,
+                                                     map(tensor.is_sharded, everything), shard)
             if watch and state.step % watch_period == 0:
                 named = list(model.named_parameters())
                 graded = [(n, p) for n, p in named if p.grad is not None]
                 names = ([f"parameters/{watch_name(n, p.dim())}" for n, p in named]
                          + [f"gradients/{watch_name(n, p.dim())}" for n, p in graded])
+                leaves = [p for _, p in named] + [p for _, p in graded]
                 parts["watch"] = (names, *watch_summary(
-                    [p for _, p in named] + [p.grad for _, p in graded]))
+                    [p for _, p in named] + [p.grad for _, p in graded],
+                    map(tensor.is_sharded, leaves), shard))
         state.step += 1
         return parts, stats
 

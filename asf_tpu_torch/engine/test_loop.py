@@ -28,11 +28,15 @@ ported.
 
 Across ranks (``tools/run_net.py``) every host scores the whole test set,
 as the JAX package's host-local mesh does (``:176-186``): the loader does
-not split it over hosts, each of a host's ``NUM_GPUS`` ranks scores its
-rows of each batch (the last batch padded, as ``pad_batch_to`` pads it),
-the scores, labels, clip ids and metadata are gathered to the host's local
-rank 0 in a per-host group, which keeps the batch's real rows and feeds
-the meter, and only global rank 0 writes the pickle (``:145``).
+not split it over hosts, each of a host's ``NUM_GPUS`` data ranks scores
+its rows of each batch (the last batch padded, as ``pad_batch_to`` pads
+it), the scores, labels, clip ids and metadata are gathered to the host's
+local rank 0 in a per-host group, which keeps the batch's real rows and
+feeds the meter, and only global rank 0 writes the pickle (``:145``). On a
+data x model grid (``GPU.MODEL_PARALLEL``; the JAX package's ``:209-214``)
+the loaded model is sharded (``parallel/tensor.py:shard_model``), every
+rank of a model group computes its data rank's scores, and only the ranks
+of model rank 0 gather them and feed a meter.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from ..checkpoint import manager as cu
 from ..data.loader import construct_loader
 from ..data.prefetch import prefetch
 from ..models import build_model
-from ..parallel import dist
+from ..parallel import dist, tensor
 from ..utils.logging import get_logger, setup_logging
 from ..utils.torch_setup import disable_tf32, resolve_device
 from . import metrics
@@ -57,11 +61,10 @@ from .steps import is_multitask, make_eval_step
 logger = get_logger(__name__)
 
 
-def _gather_host(out: list, metadata, host_rows: int, ranks: int):
-    """``out`` (tensors) and ``metadata`` (lists) of every one of this host's
-    ``ranks`` ranks, concatenated in rank order and cut to the batch's
-    ``host_rows`` real rows."""
-    group = dist.host_group(ranks)
+def _gather_host(out: list, metadata, host_rows: int, group):
+    """``out`` (tensors) and ``metadata`` (lists) of every rank of ``group``
+    (this host's data ranks of one model rank), concatenated in rank order
+    and cut to the batch's ``host_rows`` real rows."""
     out = [dist.all_gather(t, group).flatten(0, 1)[:host_rows] for t in out]
     if metadata:
         parts = dist.all_gather_object(metadata, group)
@@ -70,16 +73,19 @@ def _gather_host(out: list, metadata, host_rows: int, ranks: int):
 
 
 @torch.inference_mode()
-def perform_test(test_loader, model, eval_step, test_meter, device):
+def perform_test(test_loader, model, eval_step, test_meter, device, host_group=None,
+                 scores: bool = True):
     """Scores every batch of ``test_loader``; returns the meter's
     ``finalize_metrics()``: (ensembled scores, labels), and for verb/noun
     the (verb, noun) pairs of both and the narration ids. When the loader's
-    host batches are shared by more than one rank (``local_size``), the
-    host's local rank 0 returns them, the others None."""
+    host batches are shared by more than one data rank (``local_size``),
+    they are gathered over ``host_group`` and the host's local rank 0
+    returns them, the others None. A rank with ``scores`` off (model rank 1
+    and above of a grid) runs the model alone and returns None."""
     cuda = torch.device(device).type == "cuda"
     multitask = isinstance(test_meter, (EPICTestMeter, EPICTestMeterSlide))
     shared = test_loader.local_size > 1
-    lead = test_loader.local_rank == 0
+    lead = test_loader.local_rank == 0 and scores
     # (iteration, host times, (probs..., labels..., clip ids) on the host, metadata, event)
     fetches = []
 
@@ -105,13 +111,12 @@ def perform_test(test_loader, model, eval_step, test_meter, device):
             out = ([*probs[:2], labels["verb"], labels["noun"]] if multitask
                    else [probs, labels["class_id"]]) + [batch["index"]]
             metadata = batch.get("metadata")
-            if shared:
-                out, metadata = _gather_host(out, metadata, batch["host_rows"],
-                                             test_loader.local_size)
-                if not lead:
-                    test_meter.iter_toc()
-                    test_meter.iter_tic()
-                    continue
+            if shared and scores:
+                out, metadata = _gather_host(out, metadata, batch["host_rows"], host_group)
+            if not lead:
+                test_meter.iter_toc()
+                test_meter.iter_tic()
+                continue
             host = [t.to("cpu", non_blocking=True) for t in out]
             event = None
             if cuda:
@@ -155,9 +160,10 @@ def test(cfg, device=None):
     Runs on the current CUDA device unless ``device="cpu"``; raises when
     CUDA is absent and no device was given. Sliding-window testing returns
     the windows scored: ((verb, noun) scores, (verb, noun) labels, narration
-    ids). With ``NUM_SHARDS > 1`` or ``NUM_GPUS > 1`` it is one rank of a
-    process group that ``run_net`` started, and raises without one; each
-    host's local rank 0 returns the results, the other ranks None.
+    ids). With ``NUM_SHARDS > 1``, ``NUM_GPUS > 1`` or ``GPU.MODEL_PARALLEL
+    > 1`` it is one rank of a process group that ``run_net`` started, and
+    raises without one; each host's local rank 0 returns the results, the
+    other ranks None.
     """
     dist.check_world(cfg, "test")
     device = resolve_device(device)
@@ -171,6 +177,7 @@ def test(cfg, device=None):
     model = build_model(cfg, device, torch.Generator().manual_seed(cfg.RNG_SEED))
     path = cu.load_test_checkpoint(cfg, model)
     logger.info("Test weights: %s", path or "random initialization")
+    tensor.shard_model(model, cfg)
     eval_step = make_eval_step(cfg, device)
     test_loader = construct_loader(cfg, "test")
     try:
@@ -192,7 +199,9 @@ def test(cfg, device=None):
                 ensemble_method=cfg.DATA.ENSEMBLE_METHOD,
                 log_period=cfg.LOG_PERIOD,
             )
-        results = perform_test(test_loader, model, eval_step, meter, device)
+        group = dist.host_group(cfg) if test_loader.local_size > 1 else None
+        results = perform_test(test_loader, model, eval_step, meter, device, group,
+                               scores=dist.model_rank(cfg) == 0)
     finally:
         test_loader.close()
     if results is None:

@@ -45,6 +45,18 @@ ranks on the card, precise BN runs on every rank, and only global rank 0
 logs at INFO, observes and writes checkpoints, each checkpoint followed by
 a barrier so that every rank finds the file an auto-resume reads.
 
+On a data x model grid (``GPU.MODEL_PARALLEL`` = mp above 1; the JAX
+package's ``:402-407``) the whole model is built and loaded, then
+``parallel/tensor.py:shard_model`` keeps this rank's block of each wide
+leaf and of its momentum, and ``DistributedDataParallel`` averages the
+gradients over the data group (the ranks of this model rank). The ranks of
+a model group read the same rows and compute the same full activations:
+the rows an iteration counts are the data ranks', precise BN's statistics
+are the data group's, and the global generators are seeded from the data
+rank, so that the head's dropout draws one mask a model group. The watch
+histograms are taken by every rank of rank 0's model group, which gathers
+them.
+
 Not ported here: the AOT warm-up, the device store and the K-step dispatch.
 """
 
@@ -63,7 +75,7 @@ from ..checkpoint import manager as cu
 from ..data.loader import construct_loader, shuffle_dataset
 from ..data.prefetch import prefetch
 from ..models import build_model
-from ..parallel import dist
+from ..parallel import dist, tensor
 from ..utils import lr_policy
 from ..utils.logging import get_logger, setup_logging
 from ..utils.misc import log_model_info
@@ -216,7 +228,7 @@ def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, de
             values = torch.stack([*parts.values(), *stats.values()])
             train_meter.iter_toc()
             # the global batch's rows, as the JAX package's meter counts them
-            pending.append((cur_iter, lr, batch["waveform"].shape[0] * dist.world_size(),
+            pending.append((cur_iter, lr, batch["waveform"].shape[0] * dist.data_size(cfg),
                             train_meter.iter_times(), (tuple(parts), (*parts, *stats)),
                             values, watch))
             profile.after(cur_iter)
@@ -241,7 +253,8 @@ def precise_bn(cfg, state, loader, pipeline, device, num_iters: int) -> None:
     pass; the momenta and the freeze are restored after it. A batch of
     window chains counts its padded windows too, as the JAX package's
     bucketed batches do. Across ranks every rank runs the same batches,
-    its rows of each, and its norms take their statistics over the ranks."""
+    its rows of each, and its norms take their statistics over the data
+    ranks."""
     if num_iters <= 0:
         return
     model, forward = state.model, apply_model(cfg)
@@ -271,8 +284,8 @@ def build_train_meter(cfg, epoch_iters: int):
 
 
 def _epoch_seed(seed: int, epoch: int, rank: int = 0) -> int:
-    """The global generators' seed of ``epoch`` on global rank ``rank``
-    (rank 0's is the seed of a run without ranks)."""
+    """The global generators' seed of ``epoch`` on data rank ``rank`` (rank
+    0's is the seed of a run without ranks)."""
     key = [int(seed), int(epoch)] + ([int(rank)] if rank else [])
     return int(np.random.SeedSequence(key).generate_state(1)[0])
 
@@ -288,8 +301,9 @@ def train(cfg, device=None):
     Weights are drawn from ``torch.Generator().manual_seed(cfg.RNG_SEED)``,
     SpecAugment's generator is seeded with ``RNG_SEED`` (on every rank),
     and the global generators (the head's dropout) are seeded from
-    ``(RNG_SEED, epoch, global rank)`` at each epoch, so that a resumed run
-    repeats the epochs of an uninterrupted one.
+    ``(RNG_SEED, epoch, data rank)`` at each epoch, so that a resumed run
+    repeats the epochs of an uninterrupted one. With ``GPU.MODEL_PARALLEL``
+    above 1 it is one rank of a data x model grid.
     """
     dist.check_world(cfg, "train")
     device = resolve_device(device)
@@ -306,10 +320,11 @@ def train(cfg, device=None):
     if cfg.LOG_MODEL_INFO:
         log_model_info(model)
     start_epoch = cu.load_train_checkpoint(cfg, state)
+    tensor.shard_model(model, cfg, state.optimizer)
     if dist.is_initialized():
         state.ddp = DistributedDataParallel(
             model, device_ids=[device.index] if device.type == "cuda" else None,
-            broadcast_buffers=False)
+            broadcast_buffers=False, process_group=dist.data_group(cfg))
 
     plus_val = (cfg.TRAIN.DATASET.lower().startswith("epickitchens")
                 and cfg.EPICKITCHENS.TRAIN_PLUS_VAL)
@@ -318,6 +333,8 @@ def train(cfg, device=None):
     scalar_logger = ScalarLogger(cfg) if dist.is_primary() else None
     watch = bool(cfg.WANDB.ENABLE and cfg.GPU.WATCH_HISTOGRAMS and scalar_logger is not None
                  and scalar_logger.wandb_run is not None)
+    if dist.model_size(cfg) > 1:  # rank 0's model group gathers the sharded leaves' histograms
+        watch = dist.all_gather_object(watch)[0] and dist.data_rank(cfg) == 0
     train_step = make_train_step(cfg, device, watch=watch)
     eval_step = make_eval_step(cfg, device)
     train_meter = build_train_meter(cfg, len(train_loader))
@@ -327,7 +344,7 @@ def train(cfg, device=None):
     try:
         for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
             shuffle_dataset(train_loader, cur_epoch)
-            torch.manual_seed(_epoch_seed(cfg.RNG_SEED, cur_epoch, dist.rank()))
+            torch.manual_seed(_epoch_seed(cfg.RNG_SEED, cur_epoch, dist.data_rank(cfg)))
             train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, device,
                         scalar_logger)
             if cfg.BN.USE_PRECISE_STATS:

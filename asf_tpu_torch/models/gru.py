@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
+from ..parallel import tensor
 from .heads import STATE_PROJECTIONS
 
 
@@ -112,8 +113,7 @@ class GRUResNetBasicHead(nn.Module):
         self.compute_dtype = dtype
 
     def _linear(self, x, linear: nn.Linear):
-        dt = self.compute_dtype
-        return F.linear(x.to(dt), linear.weight.to(dt), linear.bias.to(dt))
+        return tensor.linear(x, linear, self.compute_dtype)
 
     def _h0(self, noun_embedding: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """The state head's h0: ``noun_embedding`` (B, H) tiled to

@@ -21,7 +21,9 @@ read, as in the JAX package.
 
 In bf16 the projections compute in bf16 from float32 parameters, as in the
 JAX package; the activation and the mean run in float32 here (the JAX
-package keeps them in bf16), so probabilities come out float32.
+package keeps them in bf16), so probabilities come out float32. A
+projection that ``parallel/tensor.py:shard_model`` sharded computes its
+block of the classes and gathers the blocks (``tensor.linear``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import tensor
 
 # The state head's projections, in the order of the class axis: an
 # attribute false (-1), absent (0), true (+1).
@@ -61,8 +65,7 @@ class ResNetBasicHead(nn.Module):
         self.compute_dtype = dtype
 
     def _linear(self, x, linear: nn.Linear):
-        dt = self.compute_dtype
-        return F.linear(x.to(dt), linear.weight.to(dt), linear.bias.to(dt))
+        return tensor.linear(x, linear, self.compute_dtype)
 
     def _project(self, x, linear: nn.Linear):
         x = self._linear(x, linear)

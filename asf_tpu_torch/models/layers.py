@@ -9,7 +9,9 @@ dtype policy of the JAX package: parameters are float32 and each conv casts
 its input and weight to the compute dtype at use
 (``nn.Conv(dtype=..., param_dtype=float32)``). ``Stride2StemConv``
 (``layers.py:64-134``) works around the TPU's matrix unit and is not
-ported: the stems use the plain strided conv.
+ported: the stems use the plain strided conv. A conv that
+``parallel/tensor.py:shard_model`` sharded (``shard`` set) computes its
+block of the output channels and gathers the blocks of its model group.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tensor
+
 
 class Conv2d(nn.Conv2d):
     """Bias-free Conv2d that computes in ``dtype`` from float32 parameters."""
@@ -29,9 +33,12 @@ class Conv2d(nn.Conv2d):
         super().__init__(dim_in, dim_out, tuple(kernel), tuple(stride), tuple(padding),
                          tuple(dilation), groups, bias=False)
         self.compute_dtype = dtype
+        self.shard = None
 
     def forward(self, x):
         dt = self.compute_dtype
+        if self.shard is not None:
+            return tensor.conv2d(self, x, dt)
         return self._conv_forward(x.to(dt), self.weight.to(dt), None)
 
 

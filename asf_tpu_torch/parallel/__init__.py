@@ -1,1 +1,1 @@
-"""Data parallelism over processes (``torch.distributed``)."""
+"""Data and tensor parallelism over processes (``torch.distributed``)."""

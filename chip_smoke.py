@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Thirteen phases, each of which raises on a
+Run from the root of a checkout. Fifteen phases, each of which raises on a
 failed check (the script then exits non-zero and prints no result):
 
 1. Device and build: needs a CUDA device; prints the card's name and power
@@ -241,7 +241,24 @@ failed check (the script then exits non-zero and prints no result):
    ``stress_test`` (n = 8192, 5 s; its TFLOP/s printed), and the spectrogram
    dumper's ``_item_pathways`` on one item (one ``logmel_bf16`` launch)
    within ``BF16_TOL`` of the plain pipeline on the CPU.
-13. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
+13. Tensor parallelism (``GPU.MODEL_PARALLEL``, ``parallel/tensor.py``). Two
+   gloo ranks on ``cuda:0`` as a 1 x 2 data x model grid (``run_rank``
+   with ``backend="gloo"``; NCCL takes a card a rank): the flagship's
+   float64 step of phase 11 on the same front-end output with its 43 wide
+   leaves sharded, every gradient (gathered whole), the running statistics
+   and the loss within ``GLOO_F64_TOL`` of one process's; phase 5's bf16
+   ``train(cfg)`` epoch of 3 steps at B = 64 on the grid (``logmel_bf16``
+   7 times a rank; each rank holding its half of every sharded leaf and of
+   its momentum; the collectives by name; each rank's peak memory beside
+   phase 4's one-process peak; the checkpoint loading strictly into one
+   process's model), 3 more steps of the trained state timed with their
+   collectives counted (gloo stages through the host: no gate on time);
+   ``test(cfg)`` of phase 6's set from that checkpoint (the trunk in
+   float32), one pickle whose scores lie within ``TP_SCORE_TOL`` of one
+   process's (5 launches a rank); then ``tools/verify_release_ckpt.py --self-test`` on the card
+   (``logmel_f32`` 3 times: two ``predict`` runs and the model's own
+   forward).
+14. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
    both above the card's float32 CUDA-core peak at their main-path shapes
    (``logmel_bf16`` flagship at B = 64 and 128, ``logmel_bf16_wide`` at
    B = 64); no ``HGMMA`` and no ``HMMA`` in the SASS of ``logmel_f32``'s
@@ -249,7 +266,7 @@ failed check (the script then exits non-zero and prints no result):
    slices, so that a run against an older tree of the kernels (a
    parent-versus-change comparison) still prints all its times before it
    fails.
-14. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+15. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -420,6 +437,16 @@ GLOO_UPDATE_TOL, GLOO_LOSS_TOL, GLOO_STAT_TOL = 0.05, 1e-5, 1e-5
 GLOO_F64_TOL, GLOO_FRONT_TOL = 1e-9, 1e-5
 # logmel_bf16 launches a rank in that epoch: 1 train, 2 val.
 GLOO_LAUNCHES = 3
+# Phase 13: tensor parallelism on a 1 x 2 grid (NUM_GPUS 1, GPU.MODEL_PARALLEL
+# TP_RANKS) of gloo ranks on the one card: the float64 step held to one
+# process's at GLOO_F64_TOL, phase 5's bf16 train(cfg) epoch, then test(cfg) of
+# phase 6's set from its checkpoint, whose scores one process's test(cfg) of
+# the same checkpoint must give within TP_SCORE_TOL (max abs). The test runs
+# the trunk in float32 (TF32 off; the bf16 front end, logmel_bf16): a bf16
+# conv over a block of its output channels takes other cuDNN algorithms than
+# over all of them, and at these weights the bf16 roundings alone move the
+# ensembled scores by up to 0.03 (an H100 run of this phase).
+TP_RANKS, TP_SCORE_TOL, TP_STEPS = 2, 1e-4, 3
 # Phase 12: predict on a file shorter than a clip, main's verb subset (of 97),
 # its test views and its logging period (the watch histograms' too), and the
 # stress test's matrix size and seconds.
@@ -931,6 +958,7 @@ def phase_train(card: str) -> tuple[dict, dict]:
                                         ("wide window", wide_window(flagship_cfg()), 3,
                                          "logmel_bf16_wide")):
         launches[label], timing[label] = train_run(card, label, cfg, n_steps, kernel)
+        timing[label]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     print(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"| {card}", flush=True)
     return launches, timing
@@ -2525,26 +2553,29 @@ def nccl_rank(cfg, device) -> dict:
             "sync": sync_calls(lambda: step(state, example, 0.01)), "step": state.step}
 
 
-def float64_step(ranks: int, device) -> dict:
+def float64_step(ranks: int, device, model_ranks: int = 1) -> dict:
     """One train step of the flagship in float64 (dropout and SpecAugment
     off, ``batchnorm``) on this rank's rows of ``_example``'s clips, through
-    ``DistributedDataParallel`` in a process group of ``ranks``, with the
-    step's loss (``steps.make_loss_fn``): the loss (averaged over the
-    ranks), the gradients (their average) and the running statistics after
-    the step, on the host. Every rank runs the front end on the whole host
-    batch and keeps its rows, so that both sides feed the model the same
-    bits (a rank's own launch at 32 rows differs in the last bits,
-    ``rank_front_end``)."""
+    ``DistributedDataParallel`` in a process group of ``ranks`` data ranks
+    (and ``model_ranks`` a model group, each holding its blocks of the
+    sharded leaves: ``parallel/tensor.py``), with the step's loss
+    (``steps.make_loss_fn``): the loss (averaged over the data ranks), the
+    gradients (their average, a sharded leaf's gathered whole) and the
+    running statistics after the step, on the host. Every rank runs the
+    front end on the whole host batch and keeps its rows, so that both
+    sides feed the model the same bits (a rank's own launch at 32 rows
+    differs in the last bits, ``rank_front_end``)."""
     from torch.nn.parallel import DistributedDataParallel
 
     from asf_tpu_torch.engine.pipeline import make_input_pipeline
     from asf_tpu_torch.engine.steps import make_loss_fn, reduce_over_ranks
     from asf_tpu_torch.entry import flagship_cfg
     from asf_tpu_torch.models import build_model
-    from asf_tpu_torch.parallel import dist
+    from asf_tpu_torch.parallel import dist, tensor
 
     cfg = flagship_cfg()
     cfg.NUM_GPUS = ranks
+    cfg.GPU.MODEL_PARALLEL = model_ranks
     cfg.GPU.COMPUTE_DTYPE = "float32"
     cfg.GPU.SPEC_AUGMENT = False
     cfg.MODEL.DROPOUT_RATE = 0.0
@@ -2552,18 +2583,22 @@ def float64_step(ranks: int, device) -> dict:
     for m in model.modules():
         if hasattr(m, "compute_dtype"):
             m.compute_dtype = torch.float64
+    sharded = tensor.shard_model(model, cfg)
     net = model.train()
     if dist.is_initialized():
-        net = DistributedDataParallel(model, device_ids=[device.index], broadcast_buffers=False)
+        net = DistributedDataParallel(model, device_ids=[device.index], broadcast_buffers=False,
+                                      process_group=dist.data_group(cfg))
     lo, hi = dist.host_rows(dist.local_rank(cfg), dist.local_size(cfg), TRAIN_BATCH)
     ex = _example(cfg, device)
     paths = [p[lo:hi] for p in make_input_pipeline(cfg, device)(ex["waveform"], ex["n_valid"])]
     loss, _ = make_loss_fn(cfg)(net(paths), {"class_id": ex["labels"]["class_id"][lo:hi]})
     loss.backward()
     if dist.is_initialized():
-        loss = reduce_over_ranks({"loss": loss.detach()})["loss"]
-    return {"loss": loss.item(),
-            "grads": {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+        loss = reduce_over_ranks({"loss": loss.detach()}, dist.data_group(cfg))["loss"]
+    shard = tensor.model_shard(cfg)
+    return {"loss": loss.item(), "sharded": sharded,
+            "grads": {k: (tensor.whole(p.grad, shard) if tensor.is_sharded(p) else p.grad)
+                      .detach().cpu() for k, p in model.named_parameters()},
             "stats": {k: v.detach().cpu() for k, v in model.named_buffers()
                       if k.endswith(("running_mean", "running_var"))},
             "norms": sorted({type(m).__name__ for m in model.modules()
@@ -3236,6 +3271,250 @@ def phase_tools(card: str, kernels: dict, loop_cfg, epic_ckpt: str, root: str) -
     return paths
 
 
+def timed_steps(cfg, state, device) -> dict:
+    """One train step of ``state`` on ``_example``, then ``TP_STEPS`` more,
+    each timed on the host clock between two synchronizations: their ms and
+    the port's collectives (``dist.CALLS``) a step."""
+    from asf_tpu_torch.engine.steps import make_train_step
+    from asf_tpu_torch.parallel import dist
+
+    step, ex = make_train_step(cfg, device), _example(cfg, device)
+    step(state, ex, 0.01)
+    times = []
+    dist.CALLS.clear()
+    for _ in range(TP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, ex, 0.01)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"ms": times, "calls": {k: v / TP_STEPS for k, v in dist.CALLS.items()}}
+
+
+def tp_rank(cfg, device) -> None:
+    """A rank of phase 13's 1 x 2 grid on the one card: ``float64_step`` on
+    the grid, one bf16 ``train(cfg)`` epoch (its launches, collectives by
+    name, peak memory, each parameter's and momentum's shape), ``TP_STEPS``
+    more steps of the trained state on ``_example`` timed and their
+    collectives counted, then ``test(cfg)`` of the epoch's checkpoint;
+    writes to ``OUTPUT_DIR/tp_rank<r>.json`` and rank 0 the float64 step to
+    ``OUTPUT_DIR/tp_float64.pt``."""
+    from asf_tpu_torch.engine import test, train
+    from asf_tpu_torch.parallel import dist, tensor
+    from asf_tpu_torch.tools.loop_probe import StatsLog
+
+    out = {}
+    zero_launches()
+    f64 = float64_step(1, device, model_ranks=TP_RANKS)
+    torch.cuda.synchronize()
+    out["float64"] = {"launches": read_launches(), "sharded": f64["sharded"]}
+    if dist.rank() == 0:
+        torch.save(f64, os.path.join(cfg.OUTPUT_DIR, "tp_float64.pt"))
+    del f64
+    torch.cuda.empty_cache()
+
+    dist.CALLS.clear()
+    torch.cuda.reset_peak_memory_stats()
+    with StatsLog() as stats:
+        zero_launches()
+        state = train(cfg, device=device)
+        torch.cuda.synchronize()
+        counts = read_launches()
+    calls = dict(dist.CALLS)
+    opt = state.optimizer
+    out["train"] = {
+        "launches": counts, "calls": calls, "step": state.step,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "wrapper": type(state.ddp).__name__,
+        "losses": [r["loss"] for r in stats.of("train_iter")],
+        "iter_s": [r["dt"] for r in stats.of("train_iter")],
+        "shapes": {k: list(p.shape) for k, p in state.model.named_parameters()},
+        "momentum": {k: list(opt.state[p]["momentum_buffer"].shape)
+                     for k, p in state.model.named_parameters() if p in opt.state},
+        "sharded": [k for k, p in state.model.named_parameters() if tensor.is_sharded(p)]}
+    out["step"] = timed_steps(cfg, state, device)
+    del state
+    torch.cuda.empty_cache()
+
+    tcfg = cfg.clone()
+    tcfg.GPU.COMPUTE_DTYPE = "float32"  # see TP_SCORE_TOL
+    zero_launches()
+    result = test(tcfg, device=device)
+    torch.cuda.synchronize()
+    out["test"] = {"launches": read_launches(), "lead": result is not None}
+    with open(os.path.join(cfg.OUTPUT_DIR, f"tp_rank{dist.rank()}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_tensor(card: str, loop_cfg, phase4_peak_gib: float, phase4_ms: float) -> dict:
+    """Phase 13: tensor parallelism on a 1 x 2 grid of gloo ranks on the one
+    card (``tp_rank``), against one process, then the release check's
+    self-test on the card. Returns the launch counts by path."""
+    from asf_tpu_torch.checkpoint import manager as cu
+    from asf_tpu_torch.engine import test, train
+    from asf_tpu_torch.models import build_model
+    from asf_tpu_torch.parallel import tensor
+    from asf_tpu_torch.tools import verify_release_ckpt
+    from asf_tpu_torch.tools.loop_probe import StatsLog
+    from asf_tpu_torch.tools.run_net import run_rank
+
+    root = os.path.dirname(loop_cfg.OUTPUT_DIR)
+    paths = {}
+    cfg = loop_cfg.clone()
+    cfg.NUM_GPUS, cfg.GPU.MODEL_PARALLEL = 1, TP_RANKS
+    cfg.SOLVER.MAX_EPOCH = 1
+    cfg.DATA_LOADER.NUM_WORKERS = 0
+    cfg.VGGSOUND.TEST_LIST = "test.pkl"  # phase 6's set
+    cfg.TEST.NUM_ENSEMBLE_VIEWS, cfg.TEST.BATCH_SIZE = TEST_VIEWS, TEST_BATCH
+    cfg.TEST.SAVE_RESULTS_PATH = "tp_scores.pkl"
+    cfg.OUTPUT_DIR = os.path.join(root, "tp")
+    os.makedirs(cfg.OUTPUT_DIR)
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        run_rank, args=(cfg, f"tcp://localhost:{free_port()}", tp_rank, "cuda:0", "gloo"),
+        nprocs=TP_RANKS, start_method="spawn")
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(cfg.OUTPUT_DIR, f"tp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    # the same epoch in one process: its peak above what this process holds, its steps
+    ocfg = cfg.clone()
+    ocfg.GPU.MODEL_PARALLEL = 1
+    ocfg.OUTPUT_DIR = os.path.join(root, "tp_one_train")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with StatsLog() as stats:
+        zero_launches()
+        state = train(ocfg)
+        torch.cuda.synchronize()
+        paths["one-process tp train(cfg)"] = read_launches()
+    one_peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    one_losses = [r["loss"] for r in stats.of("train_iter")]
+    one_steps = timed_steps(ocfg, state, "cuda")
+    del state
+    torch.cuda.empty_cache()
+    check(paths["one-process tp train(cfg)"]["logmel_bf16"] == EPOCH_LAUNCHES,
+          f"[tensor] one process: launches {paths['one-process tp train(cfg)']}")
+
+    # the float64 step of the grid against one process's
+    zero_launches()
+    one = float64_step(1, torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    paths["one-process float64 step (phase 13)"] = read_launches()
+    two = torch.load(os.path.join(cfg.OUTPUT_DIR, "tp_float64.pt"))
+    names = list(one["grads"])
+    grad = _rel_l2(torch.cat([two["grads"][k].flatten() for k in names]),
+                   torch.cat([one["grads"][k].flatten() for k in names]))
+    leaf = max(((k, _rel_l2(two["grads"][k], one["grads"][k])) for k in names),
+               key=lambda kv: kv[1])
+    stats = {s: _rel_l2(torch.cat([v.flatten() for k, v in two["stats"].items() if k.endswith(s)]),
+                        torch.cat([v.flatten() for k, v in one["stats"].items() if k.endswith(s)]))
+             for s in ("running_mean", "running_var")}
+    loss = abs(two["loss"] - one["loss"]) / abs(one["loss"])
+    print(f"[tensor] 1 x {TP_RANKS} grid on cuda:0 (gloo), one float64 step of the flagship on "
+          f"the same front-end output, {len(two['sharded'])} leaves sharded, against one "
+          f"process's: gradient {grad:.3g} relative L2, worst leaf {leaf[0]} {leaf[1]:.3g}; "
+          f"running means {stats['running_mean']:.3g}, variances {stats['running_var']:.3g}; "
+          f"loss {two['loss']:.9f} against {one['loss']:.9f} ({loss:.3g}) | {card}", flush=True)
+    check(len(two["sharded"]) == 43, f"[tensor] float64 step: {len(two['sharded'])} leaves sharded")
+    check(max(grad, leaf[1], loss, *stats.values()) <= GLOO_F64_TOL,
+          f"[tensor] float64 step: gradient {grad:.3g}, leaf {leaf}, statistics {stats}, loss "
+          f"{loss:.3g} (bound {GLOO_F64_TOL})")
+    del one, two
+
+    # the bf16 train(cfg) epoch on the grid
+    whole = build_model(cfg, "cuda")
+    want_sharded = tensor.shard_names(whole, TP_RANKS)
+    biases = [k[:-len("weight")] + "bias" for k in want_sharded]
+    params = {k: list(p.shape) for k, p in whole.named_parameters()}
+    ckpt = cu.load_checkpoint(cu.get_path_to_checkpoint(os.path.join(cfg.OUTPUT_DIR), 1))
+    whole.load_state_dict(ckpt["model_state"], strict=True)
+    del whole
+    for r, rec in enumerate(ranks):
+        tr, st = rec["train"], rec["step"]
+        halves = {k: ([v[0] // TP_RANKS, *v[1:]] if k in tr["sharded"] else v)
+                  for k, v in params.items()}
+        steady = tr["iter_s"][1:]
+        print(f"[tensor] rank {r}: train(cfg) epoch of {tr['step']} steps at B={TRAIN_BATCH} "
+              f"(bf16), losses {[round(v, 4) for v in tr['losses']]} (one process "
+              f"{[round(v, 4) for v in one_losses]}), launches {tr['launches']}, collectives "
+              f"{tr['calls']}; "
+              f"{len(tr['sharded'])} leaves sharded (weights and biases); peak "
+              f"{tr['peak_gib']:.3f} GiB against {one_peak:.3f} GiB for the same epoch in one "
+              f"process ({tr['peak_gib'] / one_peak:.3f} x) and phase 4's {phase4_peak_gib:.3f} "
+              f"GiB; iterations {[round(v * 1e3, 1) for v in tr['iter_s']]} ms; a step of the "
+              f"trained state {[round(v, 1) for v in st['ms']]} ms against one process's "
+              f"{[round(v, 1) for v in one_steps['ms']]} ms "
+              f"({statistics.median(st['ms']) / statistics.median(one_steps['ms']):.2f} x; "
+              f"phase 4's step {phase4_ms:.1f} ms), collectives a step {st['calls']} (one "
+              f"process {one_steps['calls']}) | {card}", flush=True)
+        check(tr["wrapper"] == "DistributedDataParallel" and tr["step"] == 3,
+              f"[tensor] rank {r}: {tr['wrapper']}, step {tr['step']}")
+        check(sorted(tr["sharded"]) == sorted(want_sharded + [b for b in biases if b in params]),
+              f"[tensor] rank {r}: sharded {len(tr['sharded'])} leaves, the rule "
+              f"{len(want_sharded)} weights")
+        check(tr["shapes"] == halves and all(tr["momentum"][k] == halves[k] for k in halves
+                                             if k in tr["momentum"])
+              and len(tr["momentum"]) == len(halves),
+              f"[tensor] rank {r}: a parameter or momentum is not its block")
+        check(all(math.isfinite(v) for v in tr["losses"]), f"[tensor] losses {tr['losses']}")
+        check(st["calls"].get("all_gather", 0) >= len(want_sharded)
+              and st["calls"].get("all_reduce", 0) >= len(want_sharded),
+              f"[tensor] rank {r}: collectives a step {st['calls']}")
+        paths[f"tp rank {r} train(cfg)"] = tr["launches"]
+        paths[f"tp rank {r} test(cfg)"] = rec["test"]["launches"]
+        paths[f"tp rank {r} float64 step"] = rec["float64"]["launches"]
+        check(tr["launches"] == {k: (EPOCH_LAUNCHES if k == "logmel_bf16" else 0)
+                                 for k in REPLACES},
+              f"[tensor] rank {r}: train launches {tr['launches']}")
+        check(rec["test"]["launches"]["logmel_bf16"] == TEST_LAUNCHES,
+              f"[tensor] rank {r}: test launches {rec['test']['launches']}")
+        check(rec["float64"]["launches"]["logmel_f32"] == 1,
+              f"[tensor] rank {r}: float64 step launches {rec['float64']['launches']}")
+
+    # test(cfg) on the grid against one process
+    scores_dir = os.path.join(cfg.OUTPUT_DIR, "scores")
+    check(os.listdir(scores_dir) == ["tp_scores.pkl"], f"score pickles {os.listdir(scores_dir)}")
+    with open(os.path.join(scores_dir, "tp_scores.pkl"), "rb") as f:
+        grid = pickle.load(f)
+    tcfg = cfg.clone()
+    tcfg.GPU.MODEL_PARALLEL = 1
+    tcfg.GPU.COMPUTE_DTYPE = "float32"
+    tcfg.OUTPUT_DIR = os.path.join(root, "tp_one")
+    tcfg.TEST.CHECKPOINT_FILE_PATH = cu.get_path_to_checkpoint(cfg.OUTPUT_DIR, 1)
+    zero_launches()
+    preds, labels = test(tcfg)
+    torch.cuda.synchronize()
+    paths["one-process tp-checkpoint test(cfg)"] = read_launches()
+    diff = float(np.abs(grid["output"] - preds).max())
+    leads = [r["test"]["lead"] for r in ranks]
+    print(f"[tensor] test(cfg) on the grid: one pickle, {grid['output'].shape} scores {diff:.3g} "
+          f"max abs from one process's (bound {TP_SCORE_TOL}), model rank 0 kept the meter "
+          f"({leads}); {wall:.1f} s for the two ranks' runs, spawn included | {card}", flush=True)
+    check(np.array_equal(grid["labels"], labels) and diff <= TP_SCORE_TOL
+          and leads == [True, False],
+          f"[tensor] test: scores {diff:.3g} apart, labels equal "
+          f"{np.array_equal(grid['labels'], labels)}, leads {leads}")
+
+    # the release check's self-test, on the card
+    out = os.path.join(root, "release")
+    zero_launches()
+    t1 = time.perf_counter()
+    rc = verify_release_ckpt.main(["--self-test", "--out", out])
+    torch.cuda.synchronize()
+    paths["verify_release_ckpt --self-test"] = read_launches()
+    print(f"[tensor] verify_release_ckpt --self-test on the card: rc {rc} in "
+          f"{time.perf_counter() - t1:.1f} s, launches "
+          f"{paths['verify_release_ckpt --self-test']} | {card}", flush=True)
+    check(rc == 0 and paths["verify_release_ckpt --self-test"]["logmel_f32"] == 3,
+          f"[tensor] verify_release_ckpt: rc {rc}, launches "
+          f"{paths['verify_release_ckpt --self-test']}")
+    return paths
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card, sass = phase_device()
@@ -3263,6 +3542,10 @@ def main() -> None:
         print(f"[smoke] phase 11: {t_ranks - t11:.1f} s for the batch-norm types, "
               f"{time.perf_counter() - t_ranks:.1f} s across ranks", flush=True)
         tool_launches = phase_tools(card, kernels, loop_cfg, epic_ckpt, root)
+        t13 = time.perf_counter()
+        tensor_launches = phase_tensor(card, loop_cfg, train_timing["flagship"]["peak_gib"],
+                                       train_timing["flagship"]["ms"])
+        print(f"[smoke] phase 13: {time.perf_counter() - t13:.1f} s | {card}", flush=True)
     check_instructions(card, sass, kernels)
     paths = {"eval": eval_launches, **{f"train {k}": v for k, v in train_launches.items()},
              "train(cfg)": loop_launches, "test(cfg)": test_launches,
@@ -3270,7 +3553,7 @@ def main() -> None:
              "gru train(cfg)": gru_train_launches, "gru test(cfg)": gru_test_launches,
              **state_launches, **resnet_launches, "slide test(cfg)": slide_launches,
              **{f"train {k}": v for k, v in bn_launches.items()}, **rank_launches,
-             **tool_launches}
+             **tool_launches, **tensor_launches}
     line = []
     for name, res in kernels.items():
         geometry, batch = LINE_BATCH[name]

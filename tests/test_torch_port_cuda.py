@@ -2,7 +2,8 @@
 the prefetcher's stream handling (fed by loader worker processes too) and
 the launches of ``train(cfg)`` and ``test(cfg)``, for VGG-Sound, for
 EPIC-KITCHENS verb/noun (its sliding windows too), for the GRU sequence model
-and for the single-pathway ResNet.
+and for the single-pathway ResNet; the tensor-parallel autograd Functions on
+two gloo ranks on the card.
 
 Imports no JAX, so it runs on a machine with a GPU and no JAX:
 
@@ -523,3 +524,34 @@ def test_slide_test_cfg_counts_its_launches(tmp_path):
     assert 0 < verb.shape[0] <= 38 and verb_l.shape == (verb.shape[0], 4)
     np.testing.assert_allclose(verb.sum(axis=1), 1.0, rtol=0, atol=1e-4)
     assert set(ids) <= {"0", "1"}
+
+
+def test_the_tensor_parallel_functions_on_the_card(tmp_path):
+    """The two autograd Functions of ``parallel/tensor.py`` at a 1 x 2 grid
+    of gloo ranks on ``cuda:0``: a sharded conv, grouped conv and linear in
+    float64, forward and backward, against the unsharded layers on the card
+    (1e-12): the outputs and input gradients whole, each parameter's
+    gradient its rank's block."""
+    import functools
+
+    import torch.multiprocessing as mp
+
+    from asf_tpu_torch.config import get_cfg
+    from asf_tpu_torch.tools import run_net
+    from torch_dist_ranks import free_port, tp_forward, tp_functions_rank, tp_layers
+
+    cfg = get_cfg()
+    cfg.GPU.MODEL_PARALLEL = 2
+    body = functools.partial(tp_functions_rank, out=str(tmp_path))
+    mp.spawn(run_net.run_rank, args=(cfg, f"tcp://localhost:{free_port()}", body, "cuda:0",
+                                     "gloo"), nprocs=2, join=True)
+    want = tp_forward(tp_layers("cuda"), "cuda")
+    for r in range(2):
+        got = torch.load(tmp_path / f"tp_rank{r}.pt")
+        assert got["names"] == ["conv.weight", "grouped.weight", "linear.weight"]
+        for k, w in want.items():
+            if k.startswith("d_"):  # every layer is sharded: its parameters' blocks
+                n = w.shape[0] // 2
+                w = w[r * n:(r + 1) * n]
+            assert got[k].shape == w.shape, k
+            assert (got[k] - w).abs().max().item() <= 1e-12 * max(1.0, w.abs().max().item()), k
