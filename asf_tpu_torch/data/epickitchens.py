@@ -1,7 +1,7 @@
-"""EPIC-KITCHENS-100 datasets from per-video wav files: one clip an item
-(``EpicKitchens``), or one chain of windows an item (``EpicKitchensGRU``);
-with PDDL state labels, ``EpicKitchensWithPDDL`` and
-``EpicKitchensGRUwithPDDL``.
+"""EPIC-KITCHENS-100 datasets from per-video wav files or an HDF5 archive:
+one clip an item (``EpicKitchens``), or one chain of windows an item
+(``EpicKitchensGRU``); with PDDL state labels, ``EpicKitchensWithPDDL``
+and ``EpicKitchensGRUwithPDDL``.
 
 Counterpart of ``asf_tpu/data/epickitchens.py:50-376`` (``EpicKitchens``,
 regular items), ``:588-642`` (``get_refs_batch``) and ``:379-391,
@@ -14,17 +14,29 @@ each list. An action at least a clip long gives a clip placed inside it
 (``_placement``); a shorter one gives all its samples, and ``n_valid`` says
 how many are real. Samples outside the video read as zeros.
 
-The audio: ``EPICKITCHENS.AUDIO_DATA_FILE`` names a directory of mono wav
-files, ``<video_id>.wav`` (what ``asf_tpu/tools/extract_audio.py`` writes
-and ``asf_tpu/tools/wav_to_hdf5.py`` packs into the JAX package's HDF5
-archive). A mono int16 file is memory-mapped, and a read copies out the
-clip's pages only (``vggsound.load_wav``). The JAX package's host byte-LRU
-(``asf_tpu/data/cache.py``) exists for HDF5 region reads; memory-mapped
-files go through the page cache, and it is not ported.
+The audio: ``EPICKITCHENS.AUDIO_DATA_FILE`` names either a directory of
+mono wav files, ``<video_id>.wav`` (what ``asf_tpu/tools/extract_audio.py``
+writes), or a file that starts with the HDF5 signature: the archive of one
+dataset a video that ``tools/wav_to_hdf5.py`` writes and the JAX package
+reads (``asf_tpu/data/epickitchens.py:147-286``), read here through the
+port's own reader (``data/hdf5.py``, no h5py). A mono int16 wav file is
+memory-mapped, and a read copies out the clip's pages only
+(``vggsound.load_wav``); the archive is memory-mapped too, and a read
+copies out the clip's bytes, or inflates the chunks it touches. Each
+process parses an archive once (``audio_source``). The JAX package's host
+byte-LRU of record segments (``asf_tpu/data/cache.py``) is not ported:
+both sources go through the page cache.
 
 The int16 transfer (``GPU.INT16_TRANSFER``) is decided for the whole split:
 a row with a ``transformation`` (a host augmentation in float,
-``data/transforms.py``) or a video that is not mono int16 turns it off.
+``data/transforms.py``) turns it off, and so does a video that is not mono
+int16 in a wav directory, or, in an archive, a video whose dataset is
+neither int16 nor float32 on the 16-bit grid (its first 16 Ki samples and a
+16 Ki chunk from its middle, or its whole remainder under three chunks,
+``ArchiveAudio.int16_blocker``, as the JAX package's ``_probe_int16``
+judges it; verdicts kept per archive file). Under the transfer an archive's
+float samples are scaled by 32768, clipped and cast to int16; without it
+its int16 samples are scaled by 1/32768.
 
 The loader reads whole batches through ``get_batch(epoch, indices)``,
 each item bit for bit what ``__getitem__`` gives. Untransformed rows draw
@@ -52,10 +64,12 @@ rows' ``precs_vec``/``posts_vec`` in {-1, 0, 1}.
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 
 from ..utils.logging import get_logger
+from . import hdf5
 from .build import register_dataset
 from .records import (
     EpicKitchensAudioRecord,
@@ -72,17 +86,139 @@ logger = get_logger(__name__)
 MODES = ("train", "val", "test", "train+val")
 
 
-def audio_dir(path: str) -> str:
-    """``path`` if it is a directory of wav files; raises otherwise."""
+_GRID_PROBE = 16384  # samples an archive's int16 probe reads at a video's head and middle
+
+
+def _padded(read, n: int, start: int, end: int, int16: bool) -> np.ndarray:
+    """Samples ``[start, end)`` of a video of ``n`` samples, zeros outside
+    it, as ``asf_tpu/data/epickitchens.py:_read_region`` gives them from
+    ``read(a, b)``: with ``int16`` raw int16 (float samples scaled by 32768,
+    clipped first), else float32 (int16 samples scaled by 1/32768)."""
+    a, b = max(0, start), min(n, end)
+    out = np.zeros(end - start, np.int16 if int16 else np.float32)
+    if b > a:
+        chunk = read(a, b)
+        if int16 and chunk.dtype != np.int16:
+            chunk = np.clip(chunk.astype(np.float32) * 32768.0, -32768.0,
+                            32767.0).astype(np.int16)
+        elif not int16 and chunk.dtype == np.int16:
+            chunk = chunk.astype(np.float32) / 32768.0
+        out[a - start : b - start] = chunk
+    return out
+
+
+class WavAudio:
+    """A directory of mono ``<video_id>.wav`` files at ``sr`` Hz."""
+
+    def __init__(self, path: str, sr: int):
+        self.path, self.sr = path, sr
+
+    def _file(self, video: str) -> str:
+        return os.path.join(self.path, f"{video}.wav")
+
+    def video_len(self, video: str) -> int:
+        return len(load_wav(self._file(video), keep_int16=True)[0])
+
+    def region(self, video: str, start: int, end: int, int16: bool) -> np.ndarray:
+        samples, sr = load_wav(self._file(video), keep_int16=True)
+        if sr != self.sr:
+            raise ValueError(f"Audio sampling rate ({sr}) of {video} does not match target "
+                             f"({self.sr})")
+        return _padded(lambda a, b: samples[a:b], len(samples), start, end, int16)
+
+    def int16_blocker(self, videos) -> str | None:
+        """Why ``videos`` cannot take the int16 transfer: the first that is
+        not mono int16 PCM; None where all are (a missing file is left to
+        the item, which raises the real IO error)."""
+        from scipy.io import wavfile
+
+        for video in videos:
+            try:
+                _, data = wavfile.read(self._file(video), mmap=True)
+            except (FileNotFoundError, ValueError):
+                continue
+            if data.dtype != np.int16 or data.ndim != 1:
+                return f"{video} is {data.dtype}/{data.ndim}D (need mono int16 PCM split-wide)"
+        return None
+
+
+class ArchiveAudio:
+    """An HDF5 archive of one dataset a video (``data/hdf5.py``), with the
+    int16 probe's verdicts of its videos."""
+
+    def __init__(self, path: str):
+        self.archive = hdf5.Archive(path)
+        self._verdicts: dict = {}  # video -> on the 16-bit grid
+        self._lock = threading.Lock()
+
+    def video_len(self, video: str) -> int:
+        return self.archive.shape(video)[0]
+
+    def region(self, video: str, start: int, end: int, int16: bool) -> np.ndarray:
+        return _padded(lambda a, b: self.archive.read(video, a, b), self.video_len(video),
+                       start, end, int16)
+
+    def int16_blocker(self, videos) -> str | None:
+        """Why ``videos`` cannot take the int16 transfer: the first whose
+        dataset is neither int16 nor float32 on the 16-bit PCM grid (v *
+        32768 integral in [-32768, 32767]) over its first ``_GRID_PROBE``
+        samples and as many from its middle, or its whole remainder when it
+        is under three times that long; None where all can. A video the
+        archive lacks is left to the item."""
+        for video in videos:
+            if video not in self.archive:
+                continue
+            dtype = self.archive.dtype(video)
+            if dtype == np.int16:
+                continue
+            with self._lock:
+                ok = self._verdicts.get(video)
+            if ok is None:
+                n = self.video_len(video)
+                mid = max(0, n // 2 - _GRID_PROBE // 2)
+                ok = dtype == np.float32 and _on_grid(self.archive.read(video, 0, _GRID_PROBE))
+                if ok:
+                    ok = _on_grid(self.archive.read(video, _GRID_PROBE, n) if mid < _GRID_PROBE
+                                  else self.archive.read(video, mid, mid + _GRID_PROBE))
+                with self._lock:
+                    self._verdicts[video] = ok
+            if not ok:
+                return f"{video} is {dtype} and not on the 16-bit PCM grid"
+        return None
+
+
+def _on_grid(samples: np.ndarray) -> bool:
+    v = np.asarray(samples, np.float32) * 32768.0
+    return bool(np.all(v == np.rint(v))
+                and (v.size == 0 or (v.min() >= -32768.0 and v.max() <= 32767.0)))
+
+
+# One ArchiveAudio a process for each archive file, keyed by (path, mtime,
+# size): the splits of a run share its parse and its verdicts.
+_ARCHIVES: dict = {}
+_ARCHIVES_LOCK = threading.Lock()
+
+
+def audio_source(path: str, sr: int):
+    """The audio ``EPICKITCHENS.AUDIO_DATA_FILE`` names: ``WavAudio`` for a
+    directory, ``ArchiveAudio`` for a file that starts with the HDF5
+    signature; anything else raises."""
     if os.path.isdir(path):
-        return path
-    if path.endswith((".hdf5", ".h5")):
-        raise ValueError(
-            f"EPICKITCHENS.AUDIO_DATA_FILE = {path!r} is an HDF5 archive: the port reads a "
-            "directory of per-video mono wav files, <video_id>.wav, and no HDF5 (see "
-            "ROADMAP.md section 1 item 7, the HDF5 -> wav exporter)")
-    raise FileNotFoundError(f"EPICKITCHENS.AUDIO_DATA_FILE = {path!r} is not a directory "
-                            "of per-video wav files")
+        return WavAudio(path, sr)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"EPICKITCHENS.AUDIO_DATA_FILE = {path!r} is neither a "
+                                "directory of per-video wav files nor an HDF5 archive")
+    if not hdf5.is_hdf5(path):
+        raise ValueError(f"EPICKITCHENS.AUDIO_DATA_FILE = {path!r} is a file without the HDF5 "
+                         "signature: the port reads an HDF5 archive of one dataset a video, "
+                         "or a directory of per-video wav files")
+    st = os.stat(path)
+    key = (os.path.abspath(path), st.st_mtime_ns, st.st_size)
+    with _ARCHIVES_LOCK:
+        source = _ARCHIVES.get(key)
+        if source is None:
+            source = _ARCHIVES[key] = ArchiveAudio(path)
+    return source
 
 
 @register_dataset("EpicKitchens")
@@ -99,7 +235,8 @@ class EpicKitchens:
         self.clip_samples = self.clip_size - 1
         self.int16 = bool(cfg.GPU.INT16_TRANSFER)
         self.transforms = get_transforms()
-        self.audio_dir = audio_dir(cfg.EPICKITCHENS.AUDIO_DATA_FILE)
+        self.audio = audio_source(cfg.EPICKITCHENS.AUDIO_DATA_FILE,
+                                  cfg.AUDIO_DATA.SAMPLING_RATE)
         self._epoch = 0
         self._video_lens: dict = {}
         self._construct_loader()
@@ -160,54 +297,33 @@ class EpicKitchens:
 
     def _probe_int16(self):
         """Turns the int16 transfer off for the split where a row has a
-        transformation (float augmentation leaves the 16-bit grid) or a
-        video is not mono int16 PCM, so that every batch has one dtype."""
+        transformation (float augmentation leaves the 16-bit grid) or the
+        audio source finds a video that cannot take it
+        (``int16_blocker``), so that every batch has one dtype."""
         if any(t != "none" for t in self._transformation):
-            logger.warning("GPU.INT16_TRANSFER disabled for EpicKitchens %s: waveform "
+            logger.warning("GPU.INT16_TRANSFER disabled for %s %s: waveform "
                            "transformations present (float-domain augmentation leaves the "
-                           "16-bit PCM grid)", self.mode)
+                           "16-bit PCM grid)", type(self).__name__, self.mode)
             self.int16 = False
             return
-        from scipy.io import wavfile
-
-        for video in dict.fromkeys(self._video):
-            try:
-                _, data = wavfile.read(self._path(video), mmap=True)
-            except (FileNotFoundError, ValueError):
-                continue  # the item raises the real IO error
-            if data.dtype != np.int16 or data.ndim != 1:
-                logger.warning("GPU.INT16_TRANSFER disabled for EpicKitchens %s: %s is %s/%dD "
-                               "(need mono int16 PCM split-wide)", self.mode, video,
-                               data.dtype, data.ndim)
-                self.int16 = False
-                return
+        reason = self.audio.int16_blocker(dict.fromkeys(self._video))
+        if reason is not None:
+            logger.warning("GPU.INT16_TRANSFER disabled for %s %s: %s", type(self).__name__,
+                           self.mode, reason)
+            self.int16 = False
 
     # -- audio -------------------------------------------------------------
-    def _path(self, video: str) -> str:
-        return os.path.join(self.audio_dir, f"{video}.wav")
-
     def _video_len(self, video: str) -> int:
         """Samples in ``video`` (remembered: a chain reads it for every item)."""
         n = self._video_lens.get(video)
         if n is None:
-            n = self._video_lens[video] = len(load_wav(self._path(video), keep_int16=True)[0])
+            n = self._video_lens[video] = self.audio.video_len(video)
         return n
 
     def _read_region(self, video: str, start: int, end: int) -> np.ndarray:
         """Samples ``[start, end)`` of ``video``, zeros outside the video:
-        raw int16 under the int16 transfer, else float32."""
-        samples, sr = load_wav(self._path(video), keep_int16=True)
-        if sr != self.cfg.AUDIO_DATA.SAMPLING_RATE:
-            raise ValueError(f"Audio sampling rate ({sr}) of {video} does not match target "
-                             f"({self.cfg.AUDIO_DATA.SAMPLING_RATE})")
-        a, b = max(0, start), min(len(samples), end)
-        out = np.zeros(end - start, np.int16 if self.int16 else np.float32)
-        if b > a:
-            chunk = samples[a:b]
-            if not self.int16 and chunk.dtype == np.int16:
-                chunk = chunk.astype(np.float32) / 32768.0
-            out[a - start : b - start] = chunk
-        return out
+        raw int16 under the int16 transfer, else float32 (``_padded``)."""
+        return self.audio.region(video, start, end, self.int16)
 
     # -- items -------------------------------------------------------------
     def _views(self, indices: np.ndarray) -> np.ndarray:

@@ -3,14 +3,15 @@
     python -m asf_tpu_torch.tools.hdf5_to_wav EPIC_audio.hdf5 OUTPUT_DIR \\
         [--sampling_rate 24000]
 
-For a user who holds only the JAX package's archive (one dataset a video,
-``tools/wav_to_hdf5.py``): each dataset becomes ``OUTPUT_DIR/<video_id>.wav``,
-mono 16-bit PCM at ``--sampling_rate`` (``AUDIO_DATA.SAMPLING_RATE``), the
-directory ``EPICKITCHENS.AUDIO_DATA_FILE`` names for the port. An int16
-dataset is written as it is; a float one as ``round(x * 32768)`` clipped to
-int16, which gives back bit for bit the samples of a 16-bit source that the
-JAX package's reader scaled by 1/32768. A host tool: ``h5py`` is imported in
-``main()``, and the card's machine has none.
+For a user who wants the audio of an archive (one dataset a video,
+``tools/wav_to_hdf5.py``) as files: each dataset becomes
+``OUTPUT_DIR/<video_id>.wav``, mono 16-bit PCM at ``--sampling_rate``
+(``AUDIO_DATA.SAMPLING_RATE``). An int16 dataset is written as it is; a
+float one as ``round(x * 32768)`` clipped to int16, which gives back bit
+for bit the samples of a 16-bit source that the JAX package's reader
+scaled by 1/32768. The archive is read through the port's own reader
+(``data/hdf5.py``, no h5py); the port also reads it directly as
+``EPICKITCHENS.AUDIO_DATA_FILE``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import argparse
 import os
 
 import numpy as np
+
+from ..data import hdf5
 
 
 def to_int16(samples: np.ndarray) -> np.ndarray:
@@ -30,7 +33,6 @@ def to_int16(samples: np.ndarray) -> np.ndarray:
 
 
 def main(argv=None):
-    import h5py
     from scipy.io import wavfile
 
     parser = argparse.ArgumentParser()
@@ -40,14 +42,14 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     os.makedirs(args.output_dir, exist_ok=True)
-    with h5py.File(args.input_file, "r") as f:
-        for name in sorted(f):
-            data = f[name][()]
-            if data.ndim != 1:
-                raise ValueError(f"{name}: a mono dataset is (samples,), got {data.shape}")
+    archive = hdf5.Archive(args.input_file)  # raises for a dataset of another rank
+    try:
+        for name in archive.names():
             wavfile.write(os.path.join(args.output_dir, f"{name}.wav"), args.sampling_rate,
-                          to_int16(data))
+                          to_int16(archive.read(name)))
             print(name)
+    finally:
+        archive.close()
 
 
 if __name__ == "__main__":

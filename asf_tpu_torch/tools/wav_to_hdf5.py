@@ -3,12 +3,14 @@
     python -m asf_tpu_torch.tools.wav_to_hdf5 AUDIO_DIR OUTPUT_FILE.hdf5 \\
         [--sampling_rate 24000] [--jobs 8] [--chunk_seconds 10] [--int16]
 
-Copy of ``asf_tpu/tools/wav_to_hdf5.py``: one dataset a video, named by
-the wav file's basename, float32 (or raw 16-bit PCM with ``--int16``),
-chunked for region reads. The archive is what the JAX package reads; the
-port reads the wav directory itself (``tools/hdf5_to_wav.py`` goes back).
-A host tool: ``h5py`` is imported in ``main()``, and the card's machine
-has none.
+Counterpart of ``asf_tpu/tools/wav_to_hdf5.py``: one dataset a video,
+named by the wav file's basename, float32 (or raw 16-bit PCM with
+``--int16``), in chunks of ``--chunk_seconds`` (``min(chunk, n)``
+samples; an empty video contiguous) for region reads. The archive is what
+both packages read as ``EPICKITCHENS.AUDIO_DATA_FILE``; it is written
+through the port's own writer (``data/hdf5.py``, no h5py), and h5py reads
+it as it reads the JAX package's tool's archive (``tools/hdf5_to_wav.py``
+goes back to wav files).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from ..data import hdf5
 
 
 def load_audio(root: str, fname: str, target_sr: int, int16: bool = False):
@@ -35,8 +39,6 @@ def load_audio(root: str, fname: str, target_sr: int, int16: bool = False):
 
 
 def main(argv=None):
-    import h5py
-
     parser = argparse.ArgumentParser()
     parser.add_argument("audio_dir", help="Directory of wav files")
     parser.add_argument("output_file", help="Path of the HDF5 file to write")
@@ -50,8 +52,7 @@ def main(argv=None):
 
     wavs = sorted(f for f in os.listdir(args.audio_dir) if f.endswith(".wav"))
     chunk = int(args.sampling_rate * args.chunk_seconds)
-    with h5py.File(args.output_file, "w") as out, \
-            ThreadPoolExecutor(max_workers=args.jobs) as pool:
+    with hdf5.Writer(args.output_file) as out, ThreadPoolExecutor(max_workers=args.jobs) as pool:
         # decoding runs at most 2 x jobs files ahead of the one writer
         window, queue_, it = max(2, 2 * args.jobs), deque(), iter(wavs)
 
@@ -68,8 +69,7 @@ def main(argv=None):
             samples, video_name = queue_.popleft().result()
             refill()
             print(video_name)
-            out.create_dataset(video_name, data=samples,
-                               chunks=(min(chunk, len(samples)),) if len(samples) else None)
+            out.add(video_name, samples, min(chunk, len(samples)) if len(samples) else None)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Fifteen phases, each of which raises on a
+Run from the root of a checkout. Sixteen phases, each of which raises on a
 failed check (the script then exits non-zero and prints no result):
 
 1. Device and build: needs a CUDA device; prints the card's name and power
@@ -258,7 +258,31 @@ failed check (the script then exits non-zero and prints no result):
    process's (5 launches a rank); then ``tools/verify_release_ckpt.py --self-test`` on the card
    (``logmel_f32`` 3 times: two ``predict`` runs and the model's own
    forward).
-14. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
+14. EPIC-KITCHENS audio from HDF5 archives (``data/hdf5.py``, the port's
+   own reader and writer, no h5py), written at run time from phase 7's 8
+   videos of 120 s: int16 through ``tools/wav_to_hdf5.py --int16`` (10 s
+   chunks), float32 on the 16-bit grid through the tool without
+   ``--int16``, and float32 off the grid (the samples times 1.0001) through
+   ``hdf5.Writer`` in 1 s chunks (120 a video: a two-level chunk B-tree).
+   On the host, for every train, val and test batch of an epoch of phase
+   7's lists (the loader in this process): the int16 archive's batches and
+   the on-grid archive's equal the wav directory's bit for bit (waveform
+   and its dtype, ``n_valid``, labels, narration ids), the on-grid archive
+   keeping the int16 transfer; the off-grid archive turns it off with its
+   warning. Then from the int16 archive: ``train(cfg)`` of phase 7 (8
+   loader workers, fine-tuned from phase 5's checkpoint), ``logmel_bf16``
+   once a batch (23) and its first loss within ``ARCHIVE_LOSS_TOL`` of
+   phase 7's; ``test(cfg)`` from phase 7's checkpoint in 10 views, the GRU's
+   ``test(cfg)`` from phase 8's and the whole-video slide ``test(cfg)`` of
+   phase 10, each with its launch count and its scores within ``CLI_TOL``
+   of its phase's from the wav directory; and ``run_net`` on
+   ``models/asf/config/asf-original-augment.yaml`` (the data paths, the
+   checkpoint, ``OUTPUT_DIR`` and phase 7's trunk overridden, as phase 10
+   runs the slide YAMLs) within ``CLI_TOL`` of the in-process scores.
+   Printed, not gated: the archive's parse time, host µs a clip read from
+   the archive and from the wav files, the first batch's wait beside phase
+   7's, and the phase's seconds.
+15. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
    both above the card's float32 CUDA-core peak at their main-path shapes
    (``logmel_bf16`` flagship at B = 64 and 128, ``logmel_bf16_wide`` at
    B = 64); no ``HGMMA`` and no ``HMMA`` in the SASS of ``logmel_f32``'s
@@ -266,7 +290,7 @@ failed check (the script then exits non-zero and prints no result):
    slices, so that a run against an older tree of the kernels (a
    parent-versus-change comparison) still prints all its times before it
    fails.
-15. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+16. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -375,6 +399,10 @@ CLI_TOL = 1e-4
 EPIC_VIDEOS, EPIC_VIDEO_SECS = 8, 120.0
 EPIC_TRAIN, EPIC_VAL, EPIC_TEST = 320, 80, 32
 EPIC_TRANSFORMS = ("polarity_inversion", "gaussian_noise", "pitch_shift")
+# Phase 14: the first train(cfg) loss from the int16 archive against phase
+# 7's from the wav files (relative; the same samples, the same seed).
+ARCHIVE_LOSS_TOL = 1e-3
+ARCHIVE_OFF_GRID = 1.0001  # the off-grid archive's samples: phase 7's times this
 # Phase 8's chains over phase 7's videos, 16 a batch: the longest chain of
 # each batch is set so that the batch pads to the bucket named here (train
 # in the loader's epoch order), so every bucket of MAX_NB_SPECTROGRAMS = 20
@@ -1317,11 +1345,12 @@ def _topk(scores: np.ndarray, labels: np.ndarray, k: int) -> np.ndarray:
     return (top == torch.from_numpy(labels)[:, None]).any(dim=1).numpy()
 
 
-def phase_epic(card: str, vgg_cfg, step_ms: float, root: str) -> tuple[dict, dict, str]:
+def phase_epic(card: str, vgg_cfg, step_ms: float, root: str) -> tuple[dict, dict, str, dict]:
     """Phase 7: EPIC-KITCHENS verb/noun ``train(cfg)``, fine-tuned from phase
     5's last checkpoint, then ``test(cfg)`` from its checkpoint, in this
     process and through ``run_net``; returns the launch counts of the two
-    in-process runs and that checkpoint."""
+    in-process runs, that checkpoint and the run (its config, its train
+    iterations' losses and its first batch's wait) for phase 14."""
     from asf_tpu_torch.checkpoint import manager as cu
     from asf_tpu_torch.engine import test, train
     from asf_tpu_torch.engine.optimizer import is_frozen_bn_param
@@ -1391,6 +1420,8 @@ def phase_epic(card: str, vgg_cfg, step_ms: float, root: str) -> tuple[dict, dic
           f"val iterations (s, wait s) {_times(viters)}; every train iteration (s, wait s) "
           f"{_times(iters)} | {card}", flush=True)
     print(f"[epic] train_epoch {stats.of('train_epoch')}; val_epoch {val}", flush=True)
+    run = {"cfg": cfg.clone(), "losses": [r["loss"] for r in iters],
+           "wait": iters[0]["dt_data"]}
     del state
 
     tcfg = cfg.clone()
@@ -1463,7 +1494,7 @@ def phase_epic(card: str, vgg_cfg, step_ms: float, root: str) -> tuple[dict, dic
           f"abs from the in-process run (gated at {CLI_TOL})", flush=True)
     check(diff <= CLI_TOL and list(cli["narration_id"]) == list(ids),
           f"the CLI's scores differ by {diff} > {CLI_TOL}")
-    return train_launches, test_launches, tcfg.TEST.CHECKPOINT_FILE_PATH
+    return train_launches, test_launches, tcfg.TEST.CHECKPOINT_FILE_PATH, run
 
 
 def write_gru(root: str, cfg) -> list:
@@ -3515,6 +3546,258 @@ def phase_tensor(card: str, loop_cfg, phase4_peak_gib: float, phase4_ms: float) 
     return paths
 
 
+def write_archives(root: str, sr: int) -> dict:
+    """Phase 14's three HDF5 archives of phase 7's videos (``root/epic_audio``),
+    by kind: ``int16`` and ``grid`` through ``tools/wav_to_hdf5.py`` (with and
+    without ``--int16``, 10 s chunks), ``off_grid`` through ``hdf5.Writer``
+    in 1 s chunks."""
+    import contextlib
+    import io
+
+    from asf_tpu_torch.data import hdf5
+    from asf_tpu_torch.data.vggsound import load_wav
+    from asf_tpu_torch.tools import wav_to_hdf5
+
+    audio = os.path.join(root, "epic_audio")
+    paths = {k: os.path.join(root, f"epic_{k}.hdf5") for k in ("int16", "grid", "off_grid")}
+    with contextlib.redirect_stdout(io.StringIO()):  # the tool prints each video's name
+        wav_to_hdf5.main([audio, paths["int16"], "--sampling_rate", str(sr), "--int16"])
+        wav_to_hdf5.main([audio, paths["grid"], "--sampling_rate", str(sr)])
+    with hdf5.Writer(paths["off_grid"]) as w:
+        for v in range(EPIC_VIDEOS):
+            wave, _ = load_wav(os.path.join(audio, f"P01_{v:02d}.wav"))
+            w.add(f"P01_{v:02d}", wave * np.float32(ARCHIVE_OFF_GRID), sr)
+    return paths
+
+
+def _loader_batches(cfg, split: str):
+    """The batches of epoch 0 of ``split`` through the loader in this
+    process: (index, waveform, n_valid, verb, noun, narration ids) each."""
+    from asf_tpu_torch.data.loader import construct_loader, shuffle_dataset
+
+    ld = construct_loader(cfg, split)
+    try:
+        shuffle_dataset(ld, 0)
+        for b in ld:
+            yield (b["index"], b["waveform"], b["n_valid"], b["labels"]["verb"],
+                   b["labels"]["noun"], np.asarray(b["metadata"]["narration_id"]))
+    finally:
+        ld.close()
+
+
+def _archive_scores(tag: str, cfg, want_pkl: str, launches: int) -> tuple[dict, dict]:
+    """``test(cfg)`` of ``cfg`` (an archive's): its launch counts (``launches``
+    of ``logmel_bf16``) and its scores against the wav directory's run's
+    pickle ``want_pkl`` within ``CLI_TOL``; returns the counts and the scores."""
+    from asf_tpu_torch.engine import test
+    from asf_tpu_torch.tools.loop_probe import StatsLog
+
+    with StatsLog() as stats:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        (verb, noun), _, ids = test(cfg)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        wall = time.perf_counter() - t0
+    with open(want_pkl, "rb") as f:
+        want = pickle.load(f)
+    diff = max(float(np.abs(verb - want["verb_output"]).max()),
+               float(np.abs(noun - want["noun_output"]).max()))
+    iters = stats.of("test_iter")
+    print(f"[archive] {tag} test(cfg) from the int16 archive: launches {counts}, {wall:.2f} s, "
+          f"{len(iters)} iterations, first batch's wait {iters[0]['dt_data']:.4f} s; scores "
+          f"{verb.shape} {noun.shape}, {diff:.3g} max abs from the wav directory's run "
+          f"({os.path.basename(want_pkl)}; gated at {CLI_TOL})", flush=True)
+    check(counts == {k: (launches if k == "logmel_bf16" else 0) for k in REPLACES},
+          f"{tag} test(cfg) from the archive: launches {counts}, expected {launches}")
+    check(verb.shape == want["verb_output"].shape and diff <= CLI_TOL
+          and list(ids) == list(want["narration_id"]),
+          f"{tag} test(cfg) from the archive: scores {diff:.3g} from the wav directory's")
+    return counts, {"verb_output": verb, "noun_output": noun, "narration_id": list(ids)}
+
+
+def phase_archive(card: str, root: str, epic_run: dict, epic_ckpt: str) -> dict:
+    """Phase 14: EPIC-KITCHENS audio from HDF5 archives (see the module
+    docstring); returns the launch counts of its in-process runs."""
+    from asf_tpu_torch.checkpoint import manager as cu
+    from asf_tpu_torch.data import hdf5
+    from asf_tpu_torch.data.epickitchens import EpicKitchens
+    from asf_tpu_torch.engine import train
+    from asf_tpu_torch.entry import epic_gru_cfg, epic_slide_cfg
+    from asf_tpu_torch.tools.loop_probe import StatsLog
+
+    t_phase = time.perf_counter()
+    base = epic_run["cfg"]
+    sr = base.AUDIO_DATA.SAMPLING_RATE
+    wav_dir = os.path.join(root, "epic_audio")
+    t0 = time.perf_counter()
+    paths = write_archives(root, sr)
+    sizes = {k: os.path.getsize(p) / 2**20 for k, p in paths.items()}
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    archive = hdf5.Archive(paths["int16"])
+    names = archive.names()
+    meta = {n: (archive.dtype(n), archive.shape(n), archive.chunks(n)) for n in names}
+    parse_ms = (time.perf_counter() - t0) * 1e3
+    n = int(sr * EPIC_VIDEO_SECS)
+    print(f"[archive] wrote the int16, on-grid float32 and off-grid float32 archives of "
+          f"{EPIC_VIDEOS} videos of {EPIC_VIDEO_SECS} s ({sizes['int16']:.1f}, "
+          f"{sizes['grid']:.1f}, {sizes['off_grid']:.1f} MiB) in {t_write:.1f} s; the int16 "
+          f"archive's root group and {len(names)} dataset headers parsed in {parse_ms:.3f} ms "
+          f"(host clock, this process's first open)", flush=True)
+    check(meta == {f"P01_{v:02d}": (np.dtype(np.int16), (n,), (min(10 * sr, n),))
+                   for v in range(EPIC_VIDEOS)}, f"the int16 archive holds {meta}")
+    off = hdf5.Archive(paths["off_grid"])
+    check(off.chunks("P01_00") == (sr,) and off._dataset("P01_00").btree is not None
+          and int(off._map()[off._dataset("P01_00").btree + 5]) == 1,
+          "the off-grid archive's 120 chunks a video are not under a two-level B-tree")
+
+    # the host checks: every batch of an epoch, archive against wav directory
+    t0 = time.perf_counter()
+    counted = {}
+    for split in ("train", "val", "test"):
+        cfgs = {}
+        for kind, path in (("wav", wav_dir), ("int16", paths["int16"]), ("grid", paths["grid"])):
+            c = cfgs[kind] = base.clone()
+            c.EPICKITCHENS.AUDIO_DATA_FILE = path
+            c.DATA_LOADER.NUM_WORKERS = 0
+        n_batches = 0
+        for wav, h16, grid in zip(*(_loader_batches(c, split) for c in cfgs.values()),
+                                  strict=True):
+            for got in (h16, grid):
+                check(all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(got, wav)),
+                      f"archive {split} batch {n_batches} differs from the wav directory's")
+            n_batches += 1
+        counted[split] = (n_batches, str(wav[1].dtype))
+        check(wav[1].dtype == (np.float32 if split == "train" else np.int16),
+              f"{split} batches are {wav[1].dtype}")
+    vcfg = base.clone()
+    vcfg.EPICKITCHENS.AUDIO_DATA_FILE = paths["off_grid"]
+    with StatsLog() as stats:
+        off_ds = EpicKitchens(vcfg, "val")
+    why = [w for w in stats.warnings if "not on the 16-bit PCM grid" in w]
+    print(f"[archive] host checks in {time.perf_counter() - t0:.1f} s: batches (count, "
+          f"waveform dtype) {counted}, the int16 and the on-grid archive's equal the wav "
+          f"directory's bit for bit; the off-grid archive's val split: int16 transfer "
+          f"{off_ds.int16}, {why}", flush=True)
+    check(not off_ds.int16 and len(why) == 1, "the off-grid archive kept the int16 transfer")
+
+    # host time of a clip read, archive against wav
+    reads = {}
+    for kind, path in (("wav", wav_dir), ("int16", paths["int16"])):
+        c = base.clone()
+        c.EPICKITCHENS.AUDIO_DATA_FILE = path
+        ds = EpicKitchens(c, "val")
+        idx = np.arange(len(ds))
+        starts, _ = ds._placements(0, idx)
+        rounds = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for i, a in zip(idx, starts):
+                ds._read_region(ds._video[i], int(a), int(a) + ds.clip_samples)
+            rounds.append((time.perf_counter() - t0) / len(idx) * 1e6)
+        reads[kind] = statistics.median(rounds)
+    print(f"[archive] host µs a clip read ({EPIC_VAL} clips of {base.AUDIO_DATA.CLIP_SECS} s, "
+          f"int16, median of 5 rounds, page cache warm): archive {reads['int16']:.1f}, wav "
+          f"{reads['wav']:.1f} | {card}", flush=True)
+
+    # train(cfg) from the int16 archive, as phase 7
+    cfg = base.clone()
+    cfg.EPICKITCHENS.AUDIO_DATA_FILE = paths["int16"]
+    cfg.OUTPUT_DIR = os.path.join(root, "archive_out")
+    with StatsLog() as stats:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        state = train(cfg)
+        torch.cuda.synchronize()
+        train_launches = read_launches()
+        wall = time.perf_counter() - t0
+    del state
+    iters = stats.of("train_iter")
+    losses = [r["loss"] for r in iters]
+    want = epic_run["losses"]
+    rel = abs(losses[0] - want[0]) / abs(want[0])
+    print(f"[archive] train(cfg) from the int16 archive ({cfg.DATA_LOADER.NUM_WORKERS} loader "
+          f"workers): launches {train_launches}, {wall:.1f} s; first loss {losses[0]:.6f} "
+          f"against phase 7's {want[0]:.6f} (relative {rel:.3g}, gated at {ARCHIVE_LOSS_TOL}); "
+          f"losses {[round(v, 5) for v in losses]}, phase 7's {[round(v, 5) for v in want]}; "
+          f"first batch's wait {iters[0]['dt_data']:.4f} s, phase 7's {epic_run['wait']:.4f} s "
+          f"| {card}", flush=True)
+    check(train_launches == {k: (len(want) + min(cfg.BN.NUM_BATCHES_PRECISE, len(want))
+                                 + -(-EPIC_VAL // cfg.TRAIN.BATCH_SIZE) if k == "logmel_bf16"
+                                 else 0) for k in REPLACES},
+          f"archive train(cfg): launches {train_launches}")
+    check(len(losses) == len(want) and all(math.isfinite(v) for v in losses)
+          and rel <= ARCHIVE_LOSS_TOL, f"archive train(cfg): first loss {rel:.3g} from phase 7's")
+
+    # test(cfg) from the archive: phase 7's, phase 8's GRU, phase 10's whole-video slide
+    out = os.path.join(root, "archive_out")
+    tcfg = base.clone()
+    tcfg.EPICKITCHENS.AUDIO_DATA_FILE = paths["int16"]
+    tcfg.TEST.CHECKPOINT_FILE_PATH = epic_ckpt
+    tcfg.TEST.SAVE_RESULTS_PATH = "archive_epic.pkl"
+    tcfg.OUTPUT_DIR, tcfg.DATA_LOADER.NUM_WORKERS = out, 0
+    launches = {"archive train(cfg)": train_launches}
+    launches["archive test(cfg)"], epic = _archive_scores(
+        "epic", tcfg, os.path.join(root, "epic_out", "scores", "epic_scores.pkl"),
+        -(-EPIC_TEST * tcfg.TEST.NUM_ENSEMBLE_VIEWS // tcfg.TEST.BATCH_SIZE))
+    gcfg = epic_gru_cfg()
+    c = gcfg.EPICKITCHENS
+    c.AUDIO_DATA_FILE, c.ANNOTATIONS_DIR = paths["int16"], root
+    c.PROCESSED_TRAIN_LIST, c.PROCESSED_VAL_LIST = "gru_train.pkl", "gru_val.pkl"
+    c.PROCESSED_TEST_LIST = "gru_test.pkl"
+    gcfg.TEST.CHECKPOINT_FILE_PATH = cu.get_path_to_checkpoint(os.path.join(root, "gru_out"), 1)
+    gcfg.TEST.SAVE_RESULTS_PATH = "archive_gru.pkl"
+    gcfg.OUTPUT_DIR, gcfg.DATA_LOADER.NUM_WORKERS, gcfg.LOG_PERIOD = out, 0, 1
+    launches["archive gru test(cfg)"], _ = _archive_scores(
+        "gru", gcfg, os.path.join(root, "gru_out", "scores", "gru_scores.pkl"),
+        len(GRU_TEST_BUCKETS))
+    scfg = epic_slide_cfg("whole_video")
+    c = scfg.EPICKITCHENS
+    c.AUDIO_DATA_FILE, c.ANNOTATIONS_DIR = paths["int16"], root
+    c.PROCESSED_TEST_LIST, c.VIDEO_DURS = "epic_test.pkl", SLIDE_DURATIONS
+    scfg.TEST.CHECKPOINT_FILE_PATH = epic_ckpt
+    scfg.TEST.SAVE_RESULTS_PATH = "archive_slide.pkl"
+    scfg.OUTPUT_DIR, scfg.DATA_LOADER.NUM_WORKERS, scfg.LOG_PERIOD = out, 0, 1
+    launches["archive slide test(cfg)"], _ = _archive_scores(
+        "slide whole_video", scfg,
+        os.path.join(root, "slide_out", "scores", "slide_whole_video.pkl"),
+        -(-EPIC_VIDEOS * 239 // scfg.TEST.BATCH_SIZE))
+
+    # one repo YAML through run_net, reading the archive
+    yaml = os.path.join(ROOT, "models", "asf", "config", "asf-original-augment.yaml")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "asf_tpu_torch.tools.run_net", "--cfg", yaml,
+         "TRAIN.ENABLE", "False", "TEST.ENABLE", "True", "OUTPUT_DIR", out,
+         "EPICKITCHENS.AUDIO_DATA_FILE", paths["int16"], "EPICKITCHENS.ANNOTATIONS_DIR", root,
+         "EPICKITCHENS.PROCESSED_TEST_LIST", "epic_test.pkl",
+         "TEST.CHECKPOINT_FILE_PATH", epic_ckpt, "TEST.SAVE_RESULTS_PATH", "archive_cli.pkl",
+         # phase 7's checkpoint is of epic_cfg's trunk (ROADMAP.md section 3)
+         "SLOWFAST.ALPHA", str(base.SLOWFAST.ALPHA),
+         "SLOWFAST.FUSION_KERNEL_SZ", str(base.SLOWFAST.FUSION_KERNEL_SZ),
+         "GPU.DSP_PRECISION", base.GPU.DSP_PRECISION, "DATA_LOADER.NUM_WORKERS", "0"],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"run_net exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(os.path.join(out, "scores", "archive_cli.pkl"), "rb") as f:
+        cli = pickle.load(f)
+    diff = max(float(np.abs(cli["verb_output"] - epic["verb_output"]).max()),
+               float(np.abs(cli["noun_output"] - epic["noun_output"]).max()))
+    print(f"[archive] python -m asf_tpu_torch.tools.run_net --cfg "
+          f"models/asf/config/asf-original-augment.yaml TRAIN.ENABLE False TEST.ENABLE True "
+          f"(data paths, checkpoint, OUTPUT_DIR and trunk overridden): exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s, scores {diff:.3g} max abs from the in-process "
+          f"run (gated at {CLI_TOL})", flush=True)
+    check(diff <= CLI_TOL and list(cli["narration_id"]) == epic["narration_id"],
+          f"the augment YAML's scores differ by {diff} > {CLI_TOL}")
+    k2 = sum(c["logmel_bf16"] for c in launches.values())
+    print(f"[smoke] phase 14: {time.perf_counter() - t_phase:.1f} s, logmel_bf16 {k2} launches "
+          f"({ {k: c['logmel_bf16'] for k, c in launches.items()} }) | {card}", flush=True)
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card, sass = phase_device()
@@ -3525,7 +3808,7 @@ def main() -> None:
         loop_launches, loop_cfg, run1_losses = phase_train_cfg(
             card, train_timing["flagship"]["ms"], root)
         test_launches = phase_test_cfg(card, loop_cfg)
-        epic_train_launches, epic_test_launches, epic_ckpt = phase_epic(
+        epic_train_launches, epic_test_launches, epic_ckpt, epic_run = phase_epic(
             card, loop_cfg, train_timing["flagship"]["ms"], root)
         gru_train_launches, gru_test_launches, gru_step = phase_gru(card, epic_ckpt, root)
         state_launches = phase_state(card, epic_ckpt, root, gru_step)
@@ -3546,6 +3829,7 @@ def main() -> None:
         tensor_launches = phase_tensor(card, loop_cfg, train_timing["flagship"]["peak_gib"],
                                        train_timing["flagship"]["ms"])
         print(f"[smoke] phase 13: {time.perf_counter() - t13:.1f} s | {card}", flush=True)
+        archive_launches = phase_archive(card, root, epic_run, epic_ckpt)
     check_instructions(card, sass, kernels)
     paths = {"eval": eval_launches, **{f"train {k}": v for k, v in train_launches.items()},
              "train(cfg)": loop_launches, "test(cfg)": test_launches,
@@ -3553,7 +3837,7 @@ def main() -> None:
              "gru train(cfg)": gru_train_launches, "gru test(cfg)": gru_test_launches,
              **state_launches, **resnet_launches, "slide test(cfg)": slide_launches,
              **{f"train {k}": v for k, v in bn_launches.items()}, **rank_launches,
-             **tool_launches, **tensor_launches}
+             **tool_launches, **tensor_launches, **archive_launches}
     line = []
     for name, res in kernels.items():
         geometry, batch = LINE_BATCH[name]

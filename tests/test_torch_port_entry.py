@@ -112,11 +112,9 @@ def test_profile_busy_time_and_kernel_groups():
     assert group_of("Memset (Device)") == "other"
 
 
-# The machine with the card has no JAX, pandas or h5py.
+# The machine with the card has no JAX, pandas or h5py: the port reads and
+# writes HDF5 archives through its own data/hdf5.py.
 _FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "asf_tpu", "pandas", "h5py", "yaml", "sklearn"}
-# The host data tools that read or write the JAX package's HDF5 archive import
-# h5py (inside their main()); every other root stays forbidden for them.
-_H5PY_TOOLS = {"tools/hdf5_to_wav.py", "tools/wav_to_hdf5.py"}
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -146,16 +144,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
             "visualization/spectrograms.py", "state/dataset_prep.py", "main.py",
             "tools/predict.py", "tools/fix_weights.py", "tools/stress_test.py",
             "tools/extract_audio.py", "tools/wav_to_hdf5.py", "tools/hdf5_to_wav.py",
-            "parallel/tensor.py", "tools/verify_release_ckpt.py"} <= scanned
-    exempt = set()
+            "parallel/tensor.py", "tools/verify_release_ckpt.py", "data/hdf5.py"} <= scanned
     for path in files:
-        rel = str(path.relative_to(ROOT / "asf_tpu_torch")) if path.name != "chip_smoke.py" else ""
-        roots = _imported_roots(path)
-        bad = roots & (_FORBIDDEN - {"h5py"} if rel in _H5PY_TOOLS else _FORBIDDEN)
+        bad = _imported_roots(path) & _FORBIDDEN
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
-        if rel in _H5PY_TOOLS and "h5py" in roots:
-            exempt.add(rel)
-    assert exempt == _H5PY_TOOLS  # the exemption is used, and by these two only
 
 
 def _run_chip_smoke(cwd):

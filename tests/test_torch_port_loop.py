@@ -690,6 +690,26 @@ with open(os.path.join(root, "run.yaml"), "w") as f:
     f.write(cfg.dump())
 run_net.main(["--cfg", os.path.join(root, "run.yaml"), "--device", "cpu",
               "TRAIN.ENABLE", "False", "TEST.SAVE_RESULTS_PATH", "cli.pkl"])
+# EPIC-KITCHENS from an HDF5 archive, written and read by the port alone
+from asf_tpu_torch.data.hdf5 import Writer
+with Writer(os.path.join(root, "EPIC_audio.hdf5")) as w:
+    for v in range(2):
+        w.add(f"P01_{{v:02d}}", (np.random.default_rng(v).standard_normal(16000) * 3000
+                                ).astype(np.int16), 4000)
+rows = [{{"narration_id": f"P01_{{i:03d}}", "participant_id": "P01",
+         "video_id": f"P01_{{i % 2:02d}}", "start_timestamp": f"00:00:0{{0.1 + 0.2 * i:.2f}}",
+         "stop_timestamp": f"00:00:0{{0.6 + 0.2 * i:.2f}}", "verb_class": i % 6,
+         "noun_class": i % 8}} for i in range(8)]
+pickle.dump(rows, open(os.path.join(root, "e.pkl"), "wb"))
+cfg.TRAIN.DATASET = cfg.TEST.DATASET = "EpicKitchens"
+cfg.EPICKITCHENS.AUDIO_DATA_FILE = os.path.join(root, "EPIC_audio.hdf5")
+cfg.EPICKITCHENS.ANNOTATIONS_DIR = root
+for key in ("PROCESSED_TRAIN_LIST", "PROCESSED_VAL_LIST", "PROCESSED_TEST_LIST"):
+    cfg.EPICKITCHENS[key] = "e.pkl"
+cfg.MODEL.NUM_CLASSES = [6, 8]
+cfg.MODEL.ONLY_ACTION_RECOGNITION = True
+cfg.OUTPUT_DIR = os.path.join(root, "epic")
+train(cfg, device="cpu")
 print(sorted(m for m in ("jax", "pandas", "yaml", "h5py", "sklearn", "asf_tpu")
              if m in sys.modules))
 """
@@ -697,7 +717,8 @@ print(sorted(m for m in ("jax", "pandas", "yaml", "h5py", "sklearn", "asf_tpu")
 
 def test_train_path_imports_no_jax_pandas_yaml_or_h5py(tmp_path):
     """``train(cfg)`` on list-of-dicts annotations with 2 loader workers, then
-    ``test(cfg)``, then the ``run_net`` CLI testing from a YAML file, with
+    ``test(cfg)``, then the ``run_net`` CLI testing from a YAML file, then an
+    EPIC ``train(cfg)`` from an HDF5 archive the port wrote, with
     ``chip_smoke`` imported, in a fresh interpreter: none of the modules the
     card's machine lacks (jax, pandas, yaml, h5py, sklearn) is loaded."""
     pcfg = _model_cfg(get_cfg(), False)
@@ -724,3 +745,4 @@ def test_train_path_imports_no_jax_pandas_yaml_or_h5py(tmp_path):
     assert os.path.exists(tmp_path / "out" / "checkpoints" / "checkpoint_epoch_00001.pyth")
     for name in ("test_scores.pkl", "cli.pkl"):
         assert os.path.exists(tmp_path / "out" / "scores" / name)
+    assert os.path.exists(tmp_path / "epic" / "checkpoints" / "checkpoint_epoch_00001.pyth")
