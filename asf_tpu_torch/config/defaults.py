@@ -5,7 +5,12 @@ paths, ``train(cfg)`` and ``test(cfg)`` read, copied key-for-key from
 ``asf_tpu/config/defaults.py`` so that YAMLs written for the JAX package
 merge unchanged, plus a ``GPU`` node: the counterparts of
 ``TPU.COMPUTE_DTYPE``, ``TPU.DSP_PRECISION``, ``TPU.SPEC_AUGMENT``,
-``TPU.INT16_TRANSFER``, ``TPU.WATCH_HISTOGRAMS`` and ``TPU.PROFILE_*``. There is no kernel
+``TPU.INT16_TRANSFER``, ``TPU.WATCH_HISTOGRAMS``, ``TPU.PROFILE_*`` and the
+four caches ``TPU.{HOST_WAVEFORM,VAL_DEVICE,TRAIN_DEVICE,TEST_DEVICE}_CACHE_MB``,
+with the JAX package's defaults. Two store keys are not ported:
+``TPU.STORE_CAPACITY_QUANTUM_MB`` rounds the store's size up so that XLA's
+compile keys stay stable, and ``TPU.FUSED_STORE_GATHER`` feeds the gather
+into the K-step dispatch, neither of which the port has. There is no kernel
 on/off switch: on CUDA tensors the hand-written kernels always run, on CPU tensors
 their plain PyTorch versions do.
 """
@@ -290,6 +295,26 @@ _C.GPU.PROFILE_NUM_ITERS = 5
 # A host runs NUM_GPUS x MODEL_PARALLEL ranks, a data x model grid; NUM_GPUS
 # stays the data-parallel size a host. 1 = pure data parallel.
 _C.GPU.MODEL_PARALLEL = 1
+# Host-RAM LRU (MB) of record segments (data/cache.py), so that epochs >= 2
+# slice their clips from RAM instead of re-reading the audio. Each process
+# that reads keeps its own: every loader worker, and the calling process when
+# DATA_LOADER.NUM_WORKERS is 0, so the host may hold up to that many times the
+# budget. A split whose unique segments exceed the budget keeps none. 0 = off.
+_C.GPU.HOST_WAVEFORM_CACHE_MB = 256
+# The first val epoch keeps its device batches on the card under this budget
+# (MB) and later val epochs replay them with no loader pass (the val set is
+# the same every epoch). Past the budget the cache empties and val streams.
+# 0 = off.
+_C.GPU.VAL_DEVICE_CACHE_MB = 1024
+# Keep the train split's record segments on the card (data/device_store.py)
+# under this budget (MB): a batch is then int32 offsets made in the calling
+# process, with no loader worker, and the prefetcher gathers its waveforms on
+# the card, bit for bit the streamed ones. None is built where a row has a
+# host transformation or the set exceeds the budget. 0 = off.
+_C.GPU.TRAIN_DEVICE_CACHE_MB = 2048
+# The same store for test(cfg): every view of a record gathers from one
+# stored segment. 0 = off.
+_C.GPU.TEST_DEVICE_CACHE_MB = 2048
 
 
 def _assert_and_infer_cfg(cfg: CfgNode) -> CfgNode:

@@ -23,9 +23,14 @@ port's own reader (``data/hdf5.py``, no h5py). A mono int16 wav file is
 memory-mapped, and a read copies out the clip's pages only
 (``vggsound.load_wav``); the archive is memory-mapped too, and a read
 copies out the clip's bytes, or inflates the chunks it touches. Each
-process parses an archive once (``audio_source``). The JAX package's host
-byte-LRU of record segments (``asf_tpu/data/cache.py``) is not ported:
-both sources go through the page cache.
+process parses an archive once (``audio_source``). With
+``GPU.HOST_WAVEFORM_CACHE_MB`` above 0 each process that reads keeps a
+byte-LRU of whole record segments (``data/cache.py``, as
+``asf_tpu/data/epickitchens.py:86-107, 288-320`` does), keyed by the exact
+(video, first, end) region: a clip is sliced out of its cached segment, and
+a chain reads its covering region through it. A split whose unique segments
+exceed the budget keeps none (an over-budget LRU would re-read whole
+segments every epoch), with the JAX package's log line.
 
 The int16 transfer (``GPU.INT16_TRANSFER``) is decided for the whole split:
 a row with a ``transformation`` (a host augmentation in float,
@@ -51,9 +56,18 @@ the action's start (the reference advances one second a window, not clip
 minus overlap), and an action shorter than a clip gives its whole segment
 to every window. Each window's ``n_valid`` counts the samples inside the
 video, at least 1. Chain placement draws no random numbers, so
-``get_batch`` reads item by item; the JAX package's vectorised chain path
-(``_get_refs_batch_gru``) serves its device store, which is not ported. A
-test split of chains has one view a row.
+``get_batch`` reads item by item. A test split of chains has one view a row.
+
+The device store's protocol (``data/device_store.py``; the JAX package's
+``:379-415, 546-709``), which reads no audio: ``device_store_table`` (each
+unique segment and its length; None where a row has a transformation),
+``read_segment``, ``ref_seg_keys``, ``ref_batch(epoch, indices)`` (each
+item's segment, its clip's offset into it and ``n_valid``, with the batch's
+labels, indices and narration ids; drawn as ``get_batch`` draws them) and
+``get_ref(index)``, the per-item definition it is held to. A regular row's
+segment is its action's samples; a chain's is its covering region, into
+which each window is an offset, -1 for an empty chunk and for the bucket's
+padding (``n_valid`` 1).
 
 Every key of a record's label is kept as a table of the split's rows and
 carried by regular and chain items alike: ``verb`` and ``noun``, and for the
@@ -71,6 +85,7 @@ import numpy as np
 from ..utils.logging import get_logger
 from . import hdf5
 from .build import register_dataset
+from .cache import ByteLRUCache
 from .records import (
     EpicKitchensAudioRecord,
     EpicKitchensAudioRecordGRU,
@@ -239,9 +254,11 @@ class EpicKitchens:
                                   cfg.AUDIO_DATA.SAMPLING_RATE)
         self._epoch = 0
         self._video_lens: dict = {}
+        self._seg_table = None
         self._construct_loader()
         if self.int16:
             self._probe_int16()
+        self._seg_cache = self._segment_cache(int(cfg.GPU.HOST_WAVEFORM_CACHE_MB))
 
     def set_epoch(self, epoch: int):
         self._epoch = int(epoch)
@@ -325,6 +342,101 @@ class EpicKitchens:
         raw int16 under the int16 transfer, else float32 (``_padded``)."""
         return self.audio.region(video, start, end, self.int16)
 
+    # -- segments: the host LRU and the device store ------------------------
+    def _segment(self, row: int) -> tuple[int, int]:
+        """(first, end) sample of row ``row``'s segment: its action's
+        samples, none for ``stop <= start``."""
+        start = int(self._start[row])
+        return start, start + max(0, int(self._num[row]))
+
+    def _segment_cache(self, cache_mb: int):
+        """The LRU of ``cache_mb`` MB, or None: at 0, or where the split's
+        unique segments exceed it."""
+        if cache_mb <= 0:
+            return None
+        itemsize = 2 if self.int16 else 4
+        segs = {(v, *self._segment(row)) for row, v in enumerate(self._video)}
+        ws = sum(b - a for _v, a, b in segs) * itemsize
+        if ws > cache_mb << 20:
+            logger.info("Host waveform cache disabled for %s %s: segment working set %.0f MB > "
+                        "GPU.HOST_WAVEFORM_CACHE_MB=%d (an over-budget LRU re-reads whole record "
+                        "segments every epoch — worse than direct clip reads)",
+                        type(self).__name__, self.mode, ws / 2**20, cache_mb)
+            return None
+        return ByteLRUCache(cache_mb << 20)
+
+    def _cached_region(self, video: str, start: int, end: int) -> np.ndarray:
+        """``_read_region`` through the LRU, keyed by the exact region; a
+        read-only array."""
+        if self._seg_cache is None:
+            return self._read_region(video, start, end)
+        key = (video, start, end)
+        arr = self._seg_cache.get(key)
+        if arr is None:
+            arr = self._read_region(video, start, end)
+            self._seg_cache.put(key, arr)
+        return arr
+
+    def _store_segment(self, row: int) -> tuple[int, int]:
+        """(first, end) sample of the stored segment that holds row ``row``'s clips."""
+        return self._segment(row)
+
+    def _segment_table(self):
+        """(each row's index into the unique stored segments, those segments
+        as (video, first, end) in order, each row's segment's first sample)."""
+        if self._seg_table is None:
+            key_of, seg_of, first = {}, [], []
+            for row, video in enumerate(self._video):
+                a, b = self._store_segment(row)
+                seg_of.append(key_of.setdefault((video, a, b), len(key_of)))
+                first.append(a)
+            self._seg_table = (np.asarray(seg_of, np.int64), list(key_of),
+                               np.asarray(first, np.int64))
+        return self._seg_table
+
+    def device_store_table(self, budget_samples=None):
+        """((video, first, end), samples) of each unique stored segment, or
+        None where a row has a transformation (the store gathers raw samples)."""
+        if any(t != "none" for t in self._transformation):
+            return None
+        return [(key, key[2] - key[1]) for key in self._segment_table()[1]]
+
+    def read_segment(self, key) -> np.ndarray:
+        video, a, b = key
+        return self._read_region(video, a, b)
+
+    def ref_seg_keys(self) -> list:
+        """The stored segments in the order ``ref_batch``'s ``seg_idx`` indexes."""
+        return self._segment_table()[1]
+
+    def _ref_rest(self, indices: np.ndarray, rows: np.ndarray) -> dict:
+        return {"labels": {k: v[rows] for k, v in self._labels.items()}, "index": indices,
+                "metadata": {"narration_id": [self._narration[r] for r in rows]}}
+
+    def ref_batch(self, epoch: int, indices) -> dict:
+        """The refs of items ``indices`` of ``epoch``, with no audio read:
+        ``seg_idx`` into ``ref_seg_keys()``, ``clip_off`` into it,
+        ``n_valid``, labels, indices and narration ids; each clip placed as
+        ``get_batch`` places it."""
+        indices = np.asarray(indices, np.int64)
+        rows = indices // self._num_clips
+        seg_of, _keys, first = self._segment_table()
+        start, n_valid = self._placements(epoch, indices)
+        return {"seg_idx": seg_of[rows], "clip_off": start - first[rows],
+                "n_valid": n_valid.astype(np.int32), **self._ref_rest(indices, rows)}
+
+    def get_ref(self, index: int) -> dict:
+        """Item ``index``'s ref at the epoch of ``set_epoch``: its segment's
+        key, its clip's offset into it and ``n_valid``, placed by its own
+        ``item_rng``, as ``__getitem__`` places it."""
+        row = index // self._num_clips
+        start, n_valid = self._placement(index, item_rng(self.cfg.RNG_SEED, self._epoch, index))
+        a, b = self._store_segment(row)
+        return {"seg_key": (self._video[row], a, b), "clip_off": start - a,
+                "n_valid": np.int32(n_valid),
+                "label": {k: v[row] for k, v in self._labels.items()}, "index": index,
+                "metadata": {"narration_id": self._narration[row]}}
+
     # -- items -------------------------------------------------------------
     def _views(self, indices: np.ndarray) -> np.ndarray:
         """Each item's view: -1 (a uniform draw) outside the test split."""
@@ -369,8 +481,14 @@ class EpicKitchens:
         samples, transformed where its row says so (drawing from ``rng``),
         zero-padded to ``clip_samples``."""
         row = index // self._num_clips
+        start, n_valid = int(start), int(n_valid)
         wave = np.zeros(self.clip_samples, np.int16 if self.int16 else np.float32)
-        region = self._read_region(self._video[row], int(start), int(start) + int(n_valid))
+        if self._seg_cache is not None:  # the clip lies inside its record's segment
+            first, end = self._segment(row)
+            region = self._cached_region(self._video[row], first, end)
+            region = region[start - first : start - first + n_valid]
+        else:
+            region = self._read_region(self._video[row], start, start + n_valid)
         wave[: len(region)] = self._transform(row, region, rng)[: self.clip_samples]
         return {
             "waveform": wave,
@@ -436,7 +554,7 @@ class EpicKitchensGRU(EpicKitchens):
         """The window counts of chains ``indices``, read from the table (no audio)."""
         return self._n_windows[np.asarray(indices, np.int64)]
 
-    def _region(self, row: int) -> tuple[int, int]:
+    def _segment(self, row: int) -> tuple[int, int]:
         """(first, end) sample of row ``row``'s covering region: the
         segment of an action shorter than a clip (empty for ``stop <=
         start``), else from the start to the end of its last window."""
@@ -451,8 +569,8 @@ class EpicKitchensGRU(EpicKitchens):
         row = index
         video, num = self._video[row], int(self._num[row])
         n_windows = int(self._n_windows[row])
-        seg_start, region_end = self._region(row)
-        region = self._read_region(video, seg_start, region_end)
+        seg_start, region_end = self._segment(row)
+        region = self._cached_region(video, seg_start, region_end)
         vid_len = self._video_len(video)
         sr = self.cfg.AUDIO_DATA.SAMPLING_RATE
         waves = np.zeros((n_windows, self.clip_samples), np.int16 if self.int16 else np.float32)
@@ -482,6 +600,52 @@ class EpicKitchensGRU(EpicKitchens):
 
     def __getitem__(self, index: int):
         return self._chain(index, item_rng(self.cfg.RNG_SEED, self._epoch, index))
+
+    def _row_video_lens(self) -> np.ndarray:
+        lens = getattr(self, "_row_vid_lens", None)
+        if lens is None:
+            lens = self._row_vid_lens = np.asarray([self._video_len(v) for v in self._video],
+                                                   np.int64)
+        return lens
+
+    def _windows(self, rows: np.ndarray, nb: int) -> tuple[np.ndarray, np.ndarray]:
+        """(offsets, n_valid) (rows, nb) of the windows of chains ``rows``
+        into their covering regions, as ``_chain`` places them; -1 and
+        ``n_valid`` 1 for an empty chunk and for windows past the chain."""
+        num, nw = self._num[rows][:, None], self._n_windows[rows][:, None]
+        w = np.arange(nb, dtype=np.int64)[None, :]
+        short = num < self.clip_size
+        chunk = np.where(short, np.maximum(0, num), self.clip_samples)
+        offs = np.where(short, 0, w * self.cfg.AUDIO_DATA.SAMPLING_RATE)
+        start = self._start[rows][:, None] + offs
+        in_video = np.maximum(0, np.minimum(start + chunk, self._row_video_lens()[rows][:, None])
+                              - start)
+        dead = (chunk == 0) | (w >= nw)
+        n_valid = np.where(dead, 1, np.maximum(1, np.minimum(chunk, in_video)))
+        return np.where(dead, -1, offs), n_valid.astype(np.int32)
+
+    def ref_batch(self, epoch: int, indices) -> dict:
+        """The refs of chains ``indices`` (no random draw): ``seg_idx``,
+        ``window_offs`` and ``n_valid`` (B, MAX_NB_SPECTROGRAMS), ``lengths``,
+        ``noun_embedding``, labels, indices and narration ids."""
+        rows = np.asarray(indices, np.int64)
+        offs, n_valid = self._windows(rows, int(self.cfg.AUDIO_DATA.MAX_NB_SPECTROGRAMS))
+        return {"seg_idx": self._segment_table()[0][rows], "window_offs": offs,
+                "n_valid": n_valid, "lengths": self._n_windows[rows].astype(np.int32),
+                "noun_embedding": np.stack([self._embedding[r] for r in rows]),
+                **self._ref_rest(rows, rows)}
+
+    def get_ref(self, index: int) -> dict:
+        """Chain ``index``'s ref: its covering region's key, each window's
+        offset into it (-1 for an empty chunk) and ``n_valid``."""
+        n = int(self._n_windows[index])
+        offs, n_valid = self._windows(np.asarray([index]), n)
+        a, b = self._segment(index)
+        return {"seg_key": (self._video[index], a, b), "window_offs": offs[0],
+                "n_valid": n_valid[0], "length": np.int32(n),
+                "label": {k: v[index] for k, v in self._labels.items()}, "index": index,
+                "metadata": {"narration_id": self._narration[index]},
+                "noun_embedding": self._embedding[index]}
 
     def get_batch(self, epoch: int, indices) -> list:
         """The chains ``indices`` of ``epoch``, each bit for bit what

@@ -27,9 +27,12 @@ records' temporal index 0). Three modes (``TEST.SLIDE``):
 ``PER_ACTION_INSTANCE`` without ``INSIDE_ACTION_BOUNDS`` raises
 ``NotImplementedError``, as in the JAX package. ``EPICKITCHENS.SINGLE_BATCH``
 keeps the first ``TEST.BATCH_SIZE`` windows (whole video) or annotation
-rows (the other modes). The JAX package's device-store protocol
-(``:139-199``) serves its TPU device store, which the port does not have,
-and is not ported.
+rows (the other modes). In the device store (``data/device_store.py``;
+the JAX package's ``:139-215``) the whole-video mode stores each video once,
+as one segment from its first sample to the larger of its length and the
+reach of its windows' clips (zeros past its end), and its windows' clips
+are offsets into it: the parent's per-window segments would store a video
+``WIN_SIZE / HOP_SIZE`` times. The other modes keep the parent's segments.
 """
 
 from __future__ import annotations
@@ -69,6 +72,21 @@ class EpicKitchensSlide(EpicKitchens):
 
     def _test_views(self) -> int:
         return 1
+
+    def _whole_video(self) -> bool:
+        slide = self.cfg.TEST.SLIDE
+        return not slide.PER_ACTION_INSTANCE and not slide.INSIDE_ACTION_BOUNDS
+
+    def _store_segment(self, row: int) -> tuple[int, int]:
+        if not self._whole_video():
+            return super()._store_segment(row)
+        ends = getattr(self, "_video_ends", None)
+        if ends is None:
+            ends = self._video_ends = {}
+            reach = np.maximum(self._start + self.clip_samples, self._start + self._num)
+            for video, r in zip(self._video, reach.tolist()):
+                ends[video] = max(ends.get(video, 0), self._video_len(video), r)
+        return 0, ends[self._video[row]]
 
     def _records(self, files: list[str]) -> list:
         slide = self.cfg.TEST.SLIDE

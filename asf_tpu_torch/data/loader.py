@@ -43,6 +43,14 @@ The last val batch keeps its real rows only (no padding, no mask): the JAX
 package pads it because XLA compiles static shapes; the port computes the
 metrics on the rows it has. The host-to-card copy is ``data/prefetch.py``'s.
 
+With a device store attached (``attach_store``; ``GPU.TRAIN_DEVICE_CACHE_MB``
+and ``GPU.TEST_DEVICE_CACHE_MB``, ``asf_tpu/data/loader.py:226-292``) a pass
+starts no worker: each batch is made in the calling process from the
+dataset's tables (``ref_batch``, a few hundred bytes of int32 offsets,
+labels and indices) and its waveform is gathered on the card by the
+prefetcher; its rows, padding, ``n_real``, ``host_rows`` and chain bucket
+follow the rules below, as a streamed batch's do.
+
 With N = ``NUM_GPUS`` data ranks on a host (``parallel/dist.py``), local
 data rank r reads only rows ``[r*B/N, (r+1)*B/N)`` of each host batch of B
 rows, the rows the JAX package's ``shard_batch`` puts on its data index r:
@@ -69,16 +77,9 @@ from . import epickitchens as _epic  # noqa: F401  (registers the dataset)
 from . import epickitchens_slide as _epic_slide  # noqa: F401  (registers the dataset)
 from . import vggsound as _vgg  # noqa: F401  (registers the dataset)
 from .build import build_dataset
+from .device_store import bucket_windows, offset_batch
 
 PREFETCH_FACTOR = 2  # requests a worker holds at a time
-
-
-def bucket_windows(n: int, max_n: int) -> int:
-    """``n`` rounded up to a power of two, capped at ``max_n``."""
-    b = 1
-    while b < n:
-        b *= 2
-    return min(b, max_n)
 
 
 def _collate_chains(items: List[Dict[str, Any]], max_windows: Optional[int],
@@ -164,18 +165,27 @@ class _Batches(tud.Dataset):
         return _rebuilt, (type(ds), ds.cfg, ds.mode, self.max_windows)
 
     def __getitem__(self, key):
-        epoch, chunk, *share = key
-        if not share:
-            return collate(self.dataset.get_batch(epoch, chunk), self.max_windows)
-        lo, hi = dist.host_rows(*share)
-        real = len(chunk)
-        padded = np.concatenate([chunk, np.repeat(chunk[-1:], share[2] - real)])
-        windows = getattr(self.dataset, "chain_windows", None)
-        batch = collate(self.dataset.get_batch(epoch, padded[lo:hi]), self.max_windows,
-                        None if windows is None else int(windows(chunk).max()))
-        batch["n_real"] = max(0, min(hi, real) - lo)
-        batch["host_rows"] = real
-        return batch
+        return _rank_batch(self.dataset, key, lambda epoch, rows, n_max: collate(
+            self.dataset.get_batch(epoch, rows), self.max_windows, n_max))
+
+
+def _rank_batch(dataset, key, make):
+    """The batch of request ``key`` = ``(epoch, chunk, *share)``:
+    ``make(epoch, rows, n_max)`` of the whole chunk, or of this rank's share
+    of it, padded to the batch size by repeating its last index, with
+    ``n_real`` and ``host_rows``; chains pad to the bucket of the host
+    batch's longest chain."""
+    epoch, chunk, *share = key
+    if not share:
+        return make(epoch, chunk, None)
+    lo, hi = dist.host_rows(*share)
+    real = len(chunk)
+    padded = np.concatenate([chunk, np.repeat(chunk[-1:], share[2] - real)])
+    windows = getattr(dataset, "chain_windows", None)
+    batch = make(epoch, padded[lo:hi], None if windows is None else int(windows(chunk).max()))
+    batch["n_real"] = max(0, min(hi, real) - lo)
+    batch["host_rows"] = real
+    return batch
 
 
 class _Chunks(tud.Sampler):
@@ -218,7 +228,21 @@ class AsfLoader:
         self.world_size = world_size
         self.local_rank = local_rank
         self.local_size = local_size
+        self.device_store = None
+        self._store_bases: Optional[np.ndarray] = None
         self._dl: Optional[tud.DataLoader] = None
+
+    def attach_store(self, store) -> None:
+        """From the next pass on, yield offset batches into ``store``
+        (``data/device_store.py``), made in this process: no worker starts."""
+        self.close()
+        self.device_store = store
+        self._store_bases = np.asarray([store.base(k) for k in self.dataset.ref_seg_keys()],
+                                       np.int64)
+
+    def _offset_batch(self, epoch, rows, n_max):
+        return offset_batch(self.dataset.ref_batch(epoch, rows), self._store_bases,
+                            self.device_store, self.max_windows, n_max)
 
     def _loader(self) -> tud.DataLoader:
         if self._dl is None:
@@ -272,6 +296,8 @@ class AsfLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
+        if self.device_store is not None:
+            return (_rank_batch(self.dataset, key, self._offset_batch) for key in _Chunks(self))
         return iter(self._loader())
 
 

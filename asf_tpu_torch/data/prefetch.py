@@ -23,6 +23,14 @@ no worker thread: each batch is loaded and copied the same way when the
 consumer asks for it (the tests use it to make the loader's delays the
 loop's data wait).
 
+A loader with a device store (``data/device_store.py``) hands over offset
+batches: their ``wave_start`` and ``n_valid`` cross from pinned memory on
+the same side stream, and the store's gather runs there too, before the
+event is recorded (``asf_tpu/data/loader.py:_upload``, :91-102), so the
+consumer still waits on one event and takes a batch with a streamed
+batch's keys, shapes and dtypes; nothing here waits for the card. On the
+CPU the same code runs on CPU tensors.
+
 The JAX package's K-step macro-batches and device-side LR (``group``,
 ``lr_fn``) exist for XLA's dispatch and are not ported.
 """
@@ -35,6 +43,8 @@ from typing import Iterable, Optional
 
 import numpy as np
 import torch
+
+from .device_store import resolve_offsets
 
 DEPTH = 2  # batches copied ahead of the step by ``prefetch``
 
@@ -70,11 +80,13 @@ class _Stopped(Exception):
 
 
 class Prefetcher:
-    """Iterates ``batches`` as dicts of tensors on ``device``; ``close()``
-    stops the worker (also when the consumer stops early)."""
+    """Iterates ``batches`` as dicts of tensors on ``device``, offset
+    batches gathered from ``store``; ``close()`` stops the worker (also when
+    the consumer stops early)."""
 
-    def __init__(self, batches: Iterable[dict], device, depth: int = 2):
+    def __init__(self, batches: Iterable[dict], device, depth: int = 2, store=None):
         self.device = torch.device(device)
+        self.store = store
         self.cuda = self.device.type == "cuda"
         self.depth = int(depth)
         self._it = iter(batches)
@@ -93,10 +105,11 @@ class Prefetcher:
         if "lengths" in host:
             host = {**host, "host_lengths": host["lengths"].tolist()}
         if not self.cuda:
-            return _tensors(host, _host), None, None
+            return resolve_offsets(_tensors(host, _host), self.store), None, None
         pinned = _tensors(host, lambda a: _host(a).pin_memory())
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
             dev = _tensors(pinned, lambda t: t.to(self.device, non_blocking=True))
+            dev = resolve_offsets(dev, self.store)
             event = torch.cuda.Event()
             event.record(self._stream)
         return dev, event, pinned
@@ -167,5 +180,6 @@ class Prefetcher:
 
 
 def prefetch(loader: Iterable[dict], device) -> Prefetcher:
-    """``loader``'s batches on ``device``, ``DEPTH`` ahead."""
-    return Prefetcher(loader, device, depth=DEPTH)
+    """``loader``'s batches on ``device``, ``DEPTH`` ahead, gathered from its
+    device store where it has one."""
+    return Prefetcher(loader, device, depth=DEPTH, store=getattr(loader, "device_store", None))

@@ -15,8 +15,16 @@ through ``to_dict("records")``, a list of dicts is taken as it is.
 The loader reads whole batches through ``get_batch(epoch, indices)``, which
 draws the batch's clip starts in one vectorised call (as the JAX package's
 ``get_refs_batch`` does); ``__getitem__`` is the per-item definition it is
-held to. The JAX package's device-store protocol (``get_ref``,
-``device_store_table``) is not ported.
+held to.
+
+The device store's protocol (``data/device_store.py``; the JAX package's
+``:119-260``), which decodes no audio: a segment is a whole file.
+``device_store_table`` gives each unique file and its frame count from the
+wav header, and None once the count passes the budget; ``_file_len``
+checks the sampling rate there, since the store never calls
+``__getitem__``. ``read_segment``, ``ref_seg_keys``, ``ref_batch(epoch,
+indices)`` (each clip's file, its offset and ``n_valid``, placed as
+``get_batch`` places it) and ``get_ref(index)``, the per-item definition.
 """
 
 from __future__ import annotations
@@ -91,6 +99,8 @@ class Vggsound:
         self.clip_samples = self.clip_size - 1
         self.int16 = bool(cfg.GPU.INT16_TRANSFER)
         self._epoch = 0
+        self._file_lens: dict = {}
+        self._seg_table = None
         self._construct_loader()
 
     def set_epoch(self, epoch: int):
@@ -154,14 +164,7 @@ class Vggsound:
         return np.asarray([self._temporal_idx[i] for i in indices], np.int64)
 
     def _read(self, index: int) -> np.ndarray:
-        record = self._audio_records[index]
-        path = os.path.join(self.cfg.VGGSOUND.AUDIO_DATA_DIR, self._wav_name(record))
-        samples, sr = load_wav(path, keep_int16=self.int16)
-        assert sr == self.cfg.AUDIO_DATA.SAMPLING_RATE, (
-            f"Audio sampling rate ({sr}) does not match target "
-            f"({self.cfg.AUDIO_DATA.SAMPLING_RATE})"
-        )
-        return samples
+        return self.read_segment(self._wav_name(self._audio_records[index]))
 
     def _item(self, index: int, samples: np.ndarray, start: float, end: float) -> dict:
         """The clip ``[int(start), int(end))`` of ``samples`` (the whole file
@@ -203,6 +206,108 @@ class Vggsound:
             self.cfg.TEST.NUM_ENSEMBLE_VIEWS, self.cfg.RNG_SEED, epoch, indices,
         )
         return [self._item(i, x, a, b) for i, x, a, b in zip(indices, samples, starts, ends)]
+
+    # -- the device store (data/device_store.py) ---------------------------
+    def _path(self, name: str) -> str:
+        return os.path.join(self.cfg.VGGSOUND.AUDIO_DATA_DIR, name)
+
+    def _file_len(self, name: str) -> int:
+        """Frames of wav file ``name`` from its header (remembered), after
+        ``__getitem__``'s sampling-rate check."""
+        n = self._file_lens.get(name)
+        if n is None:
+            from scipy.io import wavfile
+
+            sr, data = wavfile.read(self._path(name), mmap=True)
+            assert sr == self.cfg.AUDIO_DATA.SAMPLING_RATE, (
+                f"Audio sampling rate ({sr}) does not match target "
+                f"({self.cfg.AUDIO_DATA.SAMPLING_RATE})"
+            )
+            n = self._file_lens[name] = int(data.shape[0])
+        return n
+
+    def device_store_table(self, budget_samples=None):
+        """(file, frames) of each unique file, or None once the frames pass
+        ``budget_samples`` (the rest of the headers go unread) or a file
+        cannot be read (the item raises the real error)."""
+        out, total = {}, 0
+        for rec in self._audio_records:
+            name = self._wav_name(rec)
+            if name in out:
+                continue
+            try:
+                n = self._file_len(name)
+            except (FileNotFoundError, ValueError):
+                return None
+            out[name] = n
+            total += n
+            if budget_samples is not None and total > budget_samples:
+                logger.info("Device segment store: Vggsound %s exceeds the sample budget after "
+                            "%d files — streaming", self.mode, len(out))
+                return None
+        return list(out.items())
+
+    def read_segment(self, name: str) -> np.ndarray:
+        samples, sr = load_wav(self._path(name), keep_int16=self.int16)
+        assert sr == self.cfg.AUDIO_DATA.SAMPLING_RATE, (
+            f"Audio sampling rate ({sr}) does not match target "
+            f"({self.cfg.AUDIO_DATA.SAMPLING_RATE})"
+        )
+        return samples
+
+    def _segment_table(self):
+        """(each item's index into the unique files, the files in order,
+        their frame counts)."""
+        if self._seg_table is None:
+            key_of = {}
+            seg_of = [key_of.setdefault(self._wav_name(r), len(key_of))
+                      for r in self._audio_records]
+            self._seg_table = (np.asarray(seg_of, np.int64), list(key_of),
+                               np.asarray([self._file_len(k) for k in key_of], np.int64))
+        return self._seg_table
+
+    def ref_seg_keys(self) -> list:
+        return self._segment_table()[1]
+
+    def _clip_refs(self, lens: np.ndarray, starts: np.ndarray, ends: np.ndarray):
+        """(offsets, n_valid) of clips ``[int(start), int(end))`` of files of
+        ``lens`` frames, the whole file where it is shorter than a clip."""
+        short = lens < self.clip_size
+        off = np.where(short, 0, np.floor(starts)).astype(np.int64)
+        n_valid = np.where(short, lens, np.floor(ends) - np.floor(starts))
+        return off, np.minimum(n_valid, self.clip_samples).astype(np.int32)
+
+    def ref_batch(self, epoch: int, indices) -> dict:
+        """The refs of items ``indices`` of ``epoch``: ``seg_idx`` into
+        ``ref_seg_keys()``, ``clip_off``, ``n_valid``, labels and indices."""
+        indices = np.asarray(indices, np.int64)
+        seg_of, _keys, lens = self._segment_table()
+        si = seg_of[indices]
+        starts, ends = get_start_end_idx_batch(
+            lens[si], self.clip_size, self._views(indices), self.cfg.TEST.NUM_ENSEMBLE_VIEWS,
+            self.cfg.RNG_SEED, epoch, indices,
+        )
+        off, n_valid = self._clip_refs(lens[si], starts, ends)
+        labels = np.stack([np.asarray(self._audio_records[i]["class_id"]) for i in indices])
+        return {"seg_idx": si, "clip_off": off, "n_valid": n_valid,
+                "labels": {"class_id": labels}, "index": indices, "metadata": {}}
+
+    def get_ref(self, index: int) -> dict:
+        """Item ``index``'s ref at the epoch of ``set_epoch``, placed by its
+        own ``item_rng`` as ``__getitem__`` places it."""
+        name = self._wav_name(self._audio_records[index])
+        n = self._file_len(name)
+        start = end = 0.0
+        if n >= self.clip_size:
+            start, end = get_start_end_idx(
+                n, self.clip_size, int(self._views([index])[0]),
+                self.cfg.TEST.NUM_ENSEMBLE_VIEWS,
+                rng=item_rng(self.cfg.RNG_SEED, self._epoch, index),
+            )
+        off, n_valid = self._clip_refs(np.asarray([n]), np.asarray([start]), np.asarray([end]))
+        return {"seg_key": name, "clip_off": int(off[0]), "n_valid": n_valid[0],
+                "label": {"class_id": self._audio_records[index]["class_id"]}, "index": index,
+                "metadata": {}}
 
     def __len__(self):
         return len(self._audio_records)

@@ -17,7 +17,16 @@ and ``TENSORBOARD.CONFUSION_MATRIX.ENABLE`` or ``HISTOGRAM.ENABLE``
 scores) and labels are read back with the same flush, and after the epoch
 the confusion matrix and the top-k histograms are added at ``global_step =
 epoch``, with the class names of ``TENSORBOARD.CLASS_NAMES_PATH``. The JAX
-package's ``DeviceValCache`` and its fused K-step path are not ported.
+package's fused K-step path is not ported.
+
+``DeviceValCache`` (``GPU.VAL_DEVICE_CACHE_MB``; the JAX package's
+``:42-76``, replay ``:232-241``): the val set is the same every epoch (its
+loader is never reshuffled or re-keyed), so the first val epoch keeps each
+prefetched device batch, with what the flush reads (labels, lengths,
+``n_real``, ``host_rows``), under the byte budget, and later val epochs
+replay them with no loader pass and no copy. Past the budget the cache
+empties itself and every epoch streams. Across ranks each rank keeps its
+own rows.
 
 Across ranks each rank scores its rows of each host batch (a padded last
 batch: its ``n_real`` real rows, none at times), the correct counts are
@@ -89,10 +98,46 @@ def add_plots(writer, preds, labels, cfg, cur_epoch: int) -> None:
                                    global_step=cur_epoch, class_names=names)
 
 
+def _nbytes(batch: dict) -> int:
+    return sum(_nbytes(v) if isinstance(v, dict) else
+               v.numel() * v.element_size() if isinstance(v, torch.Tensor) else 0
+               for v in batch.values())
+
+
+class DeviceValCache:
+    """The val epoch's device batches, kept under ``budget_bytes``: ``add``
+    each batch of the first epoch, ``finalize`` after its last; then
+    ``ready``, and ``items`` are the batches to replay. Disabled at a
+    budget of 0 or less, and from the batch that passes it on."""
+
+    def __init__(self, budget_bytes: int):
+        self.budget = int(budget_bytes)
+        self.items: list = []
+        self.ready = False
+        self.disabled = self.budget <= 0
+        self.nbytes = 0
+
+    def add(self, batch: dict) -> None:
+        if self.disabled or self.ready:
+            return
+        self.nbytes += _nbytes(batch)
+        if self.nbytes > self.budget:
+            self.disabled = True
+            self.items.clear()
+            return
+        self.items.append(batch)
+
+    def finalize(self) -> None:
+        if not self.disabled:
+            self.ready = True
+
+
 @torch.inference_mode()
 def eval_epoch(val_loader, model, eval_step, val_meter, cur_epoch, cfg, device,
-               scalar_logger=None):
-    """Returns ``(is_best, top-1 accuracies)`` from the val meter."""
+               scalar_logger=None, device_cache: DeviceValCache | None = None):
+    """Returns ``(is_best, top-1 accuracies)`` from the val meter. With a
+    ready ``device_cache`` the epoch replays its batches; with one not yet
+    ready it streams and keeps them."""
     log_period = max(1, cfg.LOG_PERIOD)
     multitask = isinstance(val_meter, EPICValMeter)
     with_state = has_state_head(cfg)
@@ -128,11 +173,15 @@ def eval_epoch(val_loader, model, eval_step, val_meter, cur_epoch, cfg, device,
             val_meter.log_iter_stats(cur_epoch, it, times)
         pending.clear()
 
-    src = prefetch(val_loader, device)
+    replay = device_cache is not None and device_cache.ready
+    keep = device_cache is not None and not replay
+    src = device_cache.items if replay else prefetch(val_loader, device)
     try:
         val_meter.iter_tic()
         for cur_iter, batch in enumerate(src):
             val_meter.data_toc()
+            if keep:
+                device_cache.add(batch)
             probs = eval_step(model, batch)
             rows = batch["n_valid"].shape[0]
             host_rows, n_real = batch.get("host_rows", rows), batch.get("n_real", rows)
@@ -157,7 +206,10 @@ def eval_epoch(val_loader, model, eval_step, val_meter, cur_epoch, cfg, device,
             val_meter.iter_tic()
         flush()
     finally:
-        src.close()
+        if not replay:
+            src.close()
+    if keep:
+        device_cache.finalize()
     if writer is not None and plot_rows:
         add_plots(writer, np.concatenate([p for p, _ in plot_rows]),
                   np.concatenate([l for _, l in plot_rows]), cfg, cur_epoch)

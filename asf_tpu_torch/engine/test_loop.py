@@ -22,9 +22,12 @@ The loop does not wait for the card a batch: each batch's probabilities,
 labels and clip ids are queued as one copy into pinned host memory with an
 event, and the meter takes them once that event has completed. The ragged
 last batch runs with its real rows. The JAX package's padding to a static
-batch (``pad_batch_to``), its K-step ``multi_eval`` and its device store
-(``resolve_offsets``) exist for XLA and the TPU's host link and are not
-ported.
+batch (``pad_batch_to``) and its K-step ``multi_eval`` exist for XLA and
+are not ported. The test split's segments are kept on the card under
+``GPU.TEST_DEVICE_CACHE_MB`` (``data/device_store.py``; the JAX package's
+``:191-206``): every view of a record gathers from one stored segment, the
+loader starts no worker, and ``perform_test`` takes the prefetched gathered
+batch as it takes a streamed one. Each rank builds its own store.
 
 Across ranks (``tools/run_net.py``) every host scores the whole test set,
 as the JAX package's host-local mesh does (``:176-186``): the loader does
@@ -48,6 +51,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import manager as cu
+from ..data.device_store import DeviceSegmentStore
 from ..data.loader import construct_loader
 from ..data.prefetch import prefetch
 from ..models import build_model
@@ -180,6 +184,10 @@ def test(cfg, device=None):
     tensor.shard_model(model, cfg)
     eval_step = make_eval_step(cfg, device)
     test_loader = construct_loader(cfg, "test")
+    store = DeviceSegmentStore.try_build(test_loader.dataset,
+                                         int(cfg.GPU.TEST_DEVICE_CACHE_MB) << 20, device)
+    if store is not None:
+        test_loader.attach_store(store)
     try:
         dataset = test_loader.dataset
         num_clips = dataset._num_clips

@@ -57,7 +57,15 @@ rank, so that the head's dropout draws one mask a model group. The watch
 histograms are taken by every rank of rank 0's model group, which gathers
 them.
 
-Not ported here: the AOT warm-up, the device store and the K-step dispatch.
+The train split's record segments are kept on the card under
+``GPU.TRAIN_DEVICE_CACHE_MB`` (``data/device_store.py``; the JAX package's
+``:382-396``): where the store is built, the train loader starts no worker
+and each batch, precise BN's too, is gathered on the card from int32
+offsets. The first val epoch keeps its device batches under
+``GPU.VAL_DEVICE_CACHE_MB`` and later val epochs replay them
+(``eval_loop.DeviceValCache``). Each rank builds its own store and cache.
+
+Not ported here: the AOT warm-up and the K-step dispatch.
 """
 
 from __future__ import annotations
@@ -72,6 +80,7 @@ from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
 from ..checkpoint import manager as cu
+from ..data.device_store import DeviceSegmentStore
 from ..data.loader import construct_loader, shuffle_dataset
 from ..data.prefetch import prefetch
 from ..models import build_model
@@ -80,7 +89,7 @@ from ..utils import lr_policy
 from ..utils.logging import get_logger, setup_logging
 from ..utils.misc import log_model_info
 from ..utils.torch_setup import disable_tf32, resolve_device
-from .eval_loop import build_val_meter, eval_epoch
+from .eval_loop import DeviceValCache, build_val_meter, eval_epoch
 from .meters import EPICTrainMeter, TrainMeter
 from .observers import ScalarLogger
 from .steps import (
@@ -329,7 +338,12 @@ def train(cfg, device=None):
     plus_val = (cfg.TRAIN.DATASET.lower().startswith("epickitchens")
                 and cfg.EPICKITCHENS.TRAIN_PLUS_VAL)
     train_loader = construct_loader(cfg, "train+val" if plus_val else "train")
+    store = DeviceSegmentStore.try_build(train_loader.dataset,
+                                         int(cfg.GPU.TRAIN_DEVICE_CACHE_MB) << 20, device)
+    if store is not None:
+        train_loader.attach_store(store)
     val_loader = construct_loader(cfg, "val")
+    val_cache = DeviceValCache(int(cfg.GPU.VAL_DEVICE_CACHE_MB) << 20)
     scalar_logger = ScalarLogger(cfg) if dist.is_primary() else None
     watch = bool(cfg.WANDB.ENABLE and cfg.GPU.WATCH_HISTOGRAMS and scalar_logger is not None
                  and scalar_logger.wandb_run is not None)
@@ -356,7 +370,7 @@ def train(cfg, device=None):
                 cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH
             ):
                 is_best, top1 = eval_epoch(val_loader, model, eval_step, val_meter, cur_epoch,
-                                           cfg, device, scalar_logger)
+                                           cfg, device, scalar_logger, val_cache)
                 if top1 and scalar_logger is not None:
                     scalar_logger.log({f"Val/{k}": float(v) for k, v in top1.items()},
                                       global_step=(cur_epoch + 1) * len(train_loader))

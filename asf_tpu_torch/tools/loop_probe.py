@@ -29,6 +29,8 @@ and the bf16 front end at B = 64:
    beside it the median ``dt`` and ``dt_data`` of epoch 2's ``train_iter``
    records (host clock, no sync a step), and epoch 1 read the same way.
 
+The device store and the val replay are off (the three
+``GPU.*_DEVICE_CACHE_MB`` at 0): the probe measures the streamed loader.
 The files are in the page cache when they are read; files on a disk or a
 network share read slower. The CPU cores this process may run on
 (``os.sched_getaffinity``) are printed beside the worker count. Needs a GPU.
@@ -228,6 +230,9 @@ def main() -> None:
     cfg.LOG_PERIOD = 1
     cfg.LOG_MODEL_INFO = False
     cfg.DATA_LOADER.NUM_WORKERS = args.workers[0]
+    # the streamed path this probe measures: no device store, no val replay
+    cfg.GPU.TRAIN_DEVICE_CACHE_MB = cfg.GPU.TEST_DEVICE_CACHE_MB = 0
+    cfg.GPU.VAL_DEVICE_CACHE_MB = 0
     result = {"card": card, "steps": args.steps, "file_secs": args.file_secs, "batch": BATCH,
               "cores": cores}
     with tempfile.TemporaryDirectory() as root:

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Sixteen phases, each of which raises on a
+Run from the root of a checkout. Seventeen phases, each of which raises on a
 failed check (the script then exits non-zero and prints no result):
 
 1. Device and build: needs a CUDA device; prints the card's name and power
@@ -83,7 +83,9 @@ failed check (the script then exits non-zero and prints no result):
    1e-3, no ``test_warn`` record), the score pickle ``{output, labels}``
    must hold the result, and top-1 and top-5 recomputed from it must equal
    the meter's. The same test then runs through ``python -m
-   asf_tpu_torch.tools.run_net`` with a YAML config written at run time; it
+   asf_tpu_torch.tools.run_net`` with a YAML config written at run time
+   (its loader's 8 workers: the one CLI run that starts workers; the CLI
+   runs of phases 7-9 read in the CLI's process); it
    must exit 0 and its scores must lie within ``CLI_TOL`` of the in-process
    run's. Before that, while the test loader's 8 workers read, neither
    ``nvidia-smi`` nor ``/proc/<pid>/fd`` may show a worker holding the card
@@ -117,7 +119,8 @@ failed check (the script then exits non-zero and prints no result):
    videos: 192 train, 40 val and 24 test rows whose lengths put the train
    batches, in the loader's order, into every bucket of 1, 2, 4, 8, 16 and
    20 windows twice (two steps of 320 rows). ``train(cfg)`` runs one epoch
-   fine-tuned from phase 7's checkpoint: exactly ``head.gru`` and
+   streamed through 8 loader workers (no store, checked), fine-tuned from
+   phase 7's checkpoint: exactly ``head.gru`` and
    ``head.projection_to_dim_in`` are skipped with a warning, frozen BN
    parameters end equal to the checkpoint's, and ``logmel_bf16`` launches
    once a batch (12 train, 12 precise BN, 3 val). Then, on the trained
@@ -128,7 +131,8 @@ failed check (the script then exits non-zero and prints no result):
    ``torch.profiler`` (busy ms, idle share, the GRU's kernels), and
    torch's sync debug mode lists the calls that make the host wait for the
    card: none may come from the GRU model's forward.
-   ``test(cfg)`` scores the 24 chains in one view each (2 launches): the
+   ``test(cfg)`` (streamed in this process, the store off) scores the 24
+   chains in one view each (2 launches): the
    pickle's verb (24, 97) and noun (24, 300) rows each sum to 1, with the
    narration ids and labels in order and the meter's top-k; ``run_net``
    must give the same scores within ``CLI_TOL``.
@@ -138,8 +142,10 @@ failed check (the script then exits non-zero and prints no result):
    ``precs_vec``/``posts_vec``, and a seeded 512-wide ``noun_embedding``
    a chain. The GRU state model (``entry.epic_gru_state_cfg``: phase 8's
    model with the three state projections and the embedding as the GRU's
-   h0) on phase 8's chains: ``train(cfg)`` fine-tuned from phase 7's
-   checkpoint skips exactly ``head.gru``, ``head.projection_to_dim_in``
+   h0) on phase 8's chains: ``train(cfg)`` under the defaults (a store of
+   the train chains, and no worker for the train loader, checked),
+   fine-tuned from phase 7's checkpoint, skips exactly ``head.gru``,
+   ``head.projection_to_dim_in``
    and the three projections, frozen BN stays put, ``logmel_bf16``
    launches once a batch, and the val record carries the 14
    ``Val/state/*`` means. On the trained state: one 320-row step timed
@@ -282,7 +288,49 @@ failed check (the script then exits non-zero and prints no result):
    Printed, not gated: the archive's parse time, host µs a clip read from
    the archive and from the wav files, the first batch's wait beside phase
    7's, and the phase's seconds.
-15. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
+15. The device store, the val replay and the host LRU (``data/device_store.py``,
+   ``eval_loop.DeviceValCache``, ``data/cache.py``); phases 5-14 run with the
+   three ``GPU.*_DEVICE_CACHE_MB`` budgets at 0 (``streamed``), so that they
+   measure and check the streamed loader as before, but for phase 9's GRU
+   state ``train(cfg)`` (a store, checked), and this phase runs under the
+   defaults. (a) For an epoch of each of phase 5's VGG-Sound train and
+   phase 6's test set, phase 7's val and test lists from the wav directory
+   and from phase 14's int16 archive, phase 8's GRU train and val chains
+   (every bucket), phase 9's GRU-state train and state val lists and phase
+   10's whole-video and action-bounds slide sets, every batch gathered from
+   a store on the card equals the streamed device batch bit for bit (every
+   key, its dtype and shape); phase 7's train list, whose rows have
+   transformations, builds no store. (b) Phase 5's flagship ``train(cfg)``
+   under the defaults for one epoch (run 1's LR schedule), then for two in
+   another directory, and phase 8's GRU ``train(cfg)`` under the defaults,
+   each with its loaders in this process: the train split in a store, no
+   worker process for the train loader, ``logmel_bf16`` 7, 14 and 27
+   times, the first loss equal to the streamed run's (phase 5's run 1,
+   phase 8's) and every loss within ``ARCHIVE_LOSS_TOL``; (d) the two-epoch
+   run's epoch 2 val replayed from the card with the top-1 and top-5
+   errors of a streamed val epoch of the same model, the val wall of both
+   epochs printed; (e) the sync debug mode over one train step from the
+   store (offsets made, copied and gathered, then the step) lists no call
+   beyond ``pack_pathways``'s. (c) Phase 6's 10-view, phase 8's GRU and
+   phase 10's whole-video slide ``test(cfg)`` under the defaults: a store
+   of the test split, no worker, a launch a batch, the scores within
+   ``CLI_TOL`` of each phase's streamed ones. (f) Phase 7's train list from
+   phase 14's float32 on-grid archive for two epochs in this process: the
+   host LRU's batches equal the direct reads' and every read of epoch 2
+   hits. At a realistic size, printed and not gated beyond the launches,
+   the store's GiB and the losses (``tools/store_probe.py``'s archive and
+   timed ``train(cfg)``): an int16 archive of 1.55 GB written at run time
+   (18 videos of 30 min, ``hdf5.Writer``; deleted at the end), 800 train
+   actions of 25-45 s (a store of about 1.3 GB) and 64 val rows; phase 7's
+   EPIC ``train(cfg)`` (B = 32 x 400 frames, 4 precise-BN batches) under
+   the defaults and streamed through 8 workers, the first loss 0 apart:
+   the store's read and copy seconds, MB and build GB/s, the host µs of an
+   offset batch and the gather's ms at B = 32; for each run the steady
+   iteration, the data wait, the first batch's wait, the card's idle share
+   over 10 traced steps (``GPU.PROFILE_DIR``: the union of the device's
+   events over the trace's span), the receiving thread's CPU ms a batch
+   and share of a core, and the peak memory.
+16. The instruction gates: ``HGMMA`` in the SASS of both bf16 kernels, and
    both above the card's float32 CUDA-core peak at their main-path shapes
    (``logmel_bf16`` flagship at B = 64 and 128, ``logmel_bf16_wide`` at
    B = 64); no ``HGMMA`` and no ``HMMA`` in the SASS of ``logmel_f32``'s
@@ -290,7 +338,7 @@ failed check (the script then exits non-zero and prints no result):
    slices, so that a run against an older tree of the kernels (a
    parent-versus-change comparison) still prints all its times before it
    fails.
-16. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+17. One ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -490,6 +538,20 @@ TOOLS_DEVICE = "cuda"
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def streamed(cfg):
+    """``cfg`` with the device store and the val replay off (phases 5-14
+    measure and check the loader's streamed path, its worker processes
+    and their batches, as they did before the store existed)."""
+    cfg.GPU.TRAIN_DEVICE_CACHE_MB = cfg.GPU.TEST_DEVICE_CACHE_MB = 0
+    cfg.GPU.VAL_DEVICE_CACHE_MB = 0
+    return cfg
+
+
+# The configurations and score pickles of phases 5-14 that phase 15 runs again
+# with the device store: name -> config, or (config, scores or their pickle).
+RUNS: dict = {}
 
 
 def _events():
@@ -1037,7 +1099,7 @@ def phase_train_cfg(card: str, step_ms: float, root: str):
     from asf_tpu_torch.models import build_model
     from asf_tpu_torch.tools.loop_probe import StatsLog, write_vggsound
 
-    cfg = flagship_cfg()
+    cfg = streamed(flagship_cfg())
     cfg.GPU.DSP_PRECISION = "BFLOAT16"
     cfg.TRAIN.BATCH_SIZE = TRAIN_BATCH
     cfg.BN.USE_PRECISE_STATS = True
@@ -1208,6 +1270,7 @@ def phase_test_cfg(card: str, cfg) -> dict:
           flush=True)
     check_loader_workers(card, cfg)
     launches, preds, labels = vgg_test(card, cfg, "test(cfg)")
+    RUNS["vgg test"] = (cfg.clone(), preds)
     vgg_cli(cfg, preds, labels, "test(cfg)")
     return launches
 
@@ -1285,7 +1348,8 @@ def vgg_cli(cfg, preds: np.ndarray, labels: np.ndarray, tag: str) -> None:
         cli = pickle.load(f)
     diff = float(np.abs(cli["output"] - preds).max())
     print(f"[{tag}] python -m asf_tpu_torch.tools.run_net --cfg {name}.yaml TRAIN.ENABLE False "
-          f"TEST.ENABLE True: exit 0 in {time.perf_counter() - t0:.1f} s, scores {diff:.3g} max "
+          f"TEST.ENABLE True ({cfg.DATA_LOADER.NUM_WORKERS} loader workers): exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s, scores {diff:.3g} max "
           f"abs from the in-process run (gated at {CLI_TOL})", flush=True)
     check(diff <= CLI_TOL and np.array_equal(cli["labels"], labels),
           f"{tag}: the CLI's scores differ by {diff} > {CLI_TOL}")
@@ -1357,7 +1421,7 @@ def phase_epic(card: str, vgg_cfg, step_ms: float, root: str) -> tuple[dict, dic
     from asf_tpu_torch.entry import epic_cfg
     from asf_tpu_torch.tools.loop_probe import StatsLog
 
-    cfg = epic_cfg()
+    cfg = streamed(epic_cfg())
     cfg.SOLVER.MAX_EPOCH = 1
     cfg.LOG_PERIOD = 1
     cfg.LOG_MODEL_INFO = False
@@ -1405,6 +1469,7 @@ def phase_epic(card: str, vgg_cfg, step_ms: float, root: str) -> tuple[dict, dic
     losses = [r[k] for r in iters for k in ("loss", "verb_loss", "noun_loss")]
     check(len(iters) == n_train and all(math.isfinite(v) for v in losses),
           f"{len(iters)} train_iter records, losses {losses}")
+    RUNS["gru train"] = (cfg.clone(), [r["loss"] for r in iters], want)
     (val,) = stats.of("val_epoch")
     check(all(0.0 <= val[f"{t}_top{k}_acc"] <= 100.0 for t in ("verb", "noun", "action")
               for k in (1, 5)), f"val record {val}")
@@ -1422,6 +1487,7 @@ def phase_epic(card: str, vgg_cfg, step_ms: float, root: str) -> tuple[dict, dic
     print(f"[epic] train_epoch {stats.of('train_epoch')}; val_epoch {val}", flush=True)
     run = {"cfg": cfg.clone(), "losses": [r["loss"] for r in iters],
            "wait": iters[0]["dt_data"]}
+    RUNS["epic"] = cfg.clone()
     del state
 
     tcfg = cfg.clone()
@@ -1483,14 +1549,16 @@ def phase_epic(card: str, vgg_cfg, step_ms: float, root: str) -> tuple[dict, dic
     proc = subprocess.run(
         [sys.executable, "-m", "asf_tpu_torch.tools.run_net", "--cfg", yaml_path,
          "TRAIN.ENABLE", "False", "TEST.ENABLE", "True", "TEST.SAVE_RESULTS_PATH",
-         "epic_cli.pkl"], cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+         "epic_cli.pkl", "DATA_LOADER.NUM_WORKERS", "0"],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=600)
     check(proc.returncode == 0, f"run_net exited {proc.returncode}: {proc.stderr[-2000:]}")
     with open(os.path.join(tcfg.OUTPUT_DIR, "scores", "epic_cli.pkl"), "rb") as f:
         cli = pickle.load(f)
     diff = max(float(np.abs(cli["verb_output"] - verb).max()),
                float(np.abs(cli["noun_output"] - noun).max()))
     print(f"[epic] python -m asf_tpu_torch.tools.run_net --cfg epic.yaml TRAIN.ENABLE False "
-          f"TEST.ENABLE True: exit 0 in {time.perf_counter() - t0:.1f} s, scores {diff:.3g} max "
+          f"TEST.ENABLE True DATA_LOADER.NUM_WORKERS 0: exit 0 in {time.perf_counter() - t0:.1f} "
+          f"s, scores {diff:.3g} max "
           f"abs from the in-process run (gated at {CLI_TOL})", flush=True)
     check(diff <= CLI_TOL and list(cli["narration_id"]) == list(ids),
           f"the CLI's scores differ by {diff} > {CLI_TOL}")
@@ -1696,7 +1764,7 @@ def phase_gru(card: str, epic_ckpt: str, root: str) -> tuple[dict, dict]:
     from asf_tpu_torch.entry import epic_gru_cfg
     from asf_tpu_torch.tools.loop_probe import StatsLog
 
-    cfg = epic_gru_cfg()
+    cfg = streamed(epic_gru_cfg())
     cfg.SOLVER.MAX_EPOCH = 1
     cfg.LOG_PERIOD = 1
     cfg.LOG_MODEL_INFO = False
@@ -1714,7 +1782,7 @@ def phase_gru(card: str, epic_ckpt: str, root: str) -> tuple[dict, dict]:
           f"fine-tune from {os.path.basename(epic_ckpt)}", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    with StatsLog() as stats:
+    with StatsLog() as stats, _LoaderWatch() as watch:
         torch.cuda.synchronize()
         zero_launches()
         t0 = time.perf_counter()
@@ -1726,9 +1794,12 @@ def phase_gru(card: str, epic_ckpt: str, root: str) -> tuple[dict, dict]:
     want = n_train + n_precise + n_val
     print(f"[gru] train(cfg): launches {train_launches} ({n_train} train, {n_precise} precise "
           f"BN, {n_val} val batches), {wall:.1f} s in train(cfg), peak device memory "
-          f"{peak_train:.2f} GiB; warnings {stats.warnings}", flush=True)
+          f"{peak_train:.2f} GiB; loaders that started workers {watch.workers}; warnings "
+          f"{stats.warnings}", flush=True)
     check(train_launches == {k: (want if k == "logmel_bf16" else 0) for k in REPLACES},
           f"gru train(cfg): launches {train_launches}, expected {want} of logmel_bf16")
+    check(not watch.stores and "train" in watch.workers,
+          f"gru train(cfg) streamed: stores {watch.stores}, workers started by {watch.workers}")
     skipped = sorted(w.split()[3] for w in stats.warnings if w.startswith("pyth load: skipped"))
     check(skipped == ["head.gru", "head.projection_to_dim_in"],
           f"the fine-tune skipped {skipped}: it must skip the GRU and projection_to_dim_in only")
@@ -1745,6 +1816,7 @@ def phase_gru(card: str, epic_ckpt: str, root: str) -> tuple[dict, dict]:
     losses = [r[k] for r in iters for k in ("loss", "verb_loss", "noun_loss")]
     check(len(iters) == n_train and all(math.isfinite(v) for v in losses),
           f"{len(iters)} train_iter records, losses {losses}")
+    RUNS["gru train"] = (cfg.clone(), [r["loss"] for r in iters], want)
     (val,) = stats.of("val_epoch")
     check(all(0.0 <= val[f"{t}_top{k}_acc"] <= 100.0 for t in ("verb", "noun", "action")
               for k in (1, 5)), f"val record {val}")
@@ -1807,9 +1879,11 @@ def phase_gru(card: str, epic_ckpt: str, root: str) -> tuple[dict, dict]:
     check(not forward, f"the GRU model's forward waits for the card at {forward}")
     del state, big, dev
 
-    tcfg = cfg.clone()
+    tcfg = cfg.clone()  # streamed: phase 15 holds the store's test(cfg) to this one
+    tcfg.DATA_LOADER.NUM_WORKERS = 0  # its 2 batches read in this process
     tcfg.TEST.CHECKPOINT_FILE_PATH = cu.get_path_to_checkpoint(cfg.OUTPUT_DIR, 1)
     tcfg.TEST.SAVE_RESULTS_PATH = "gru_scores.pkl"
+    RUNS["gru test"] = (tcfg.clone(), os.path.join(tcfg.OUTPUT_DIR, "scores", "gru_scores.pkl"))
     with StatsLog() as stats:
         torch.cuda.synchronize()
         zero_launches()
@@ -1862,14 +1936,16 @@ def phase_gru(card: str, epic_ckpt: str, root: str) -> tuple[dict, dict]:
     proc = subprocess.run(
         [sys.executable, "-m", "asf_tpu_torch.tools.run_net", "--cfg", yaml_path,
          "TRAIN.ENABLE", "False", "TEST.ENABLE", "True", "TEST.SAVE_RESULTS_PATH",
-         "gru_cli.pkl"], cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+         "gru_cli.pkl", "DATA_LOADER.NUM_WORKERS", "0"],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=600)
     check(proc.returncode == 0, f"run_net exited {proc.returncode}: {proc.stderr[-2000:]}")
     with open(os.path.join(tcfg.OUTPUT_DIR, "scores", "gru_cli.pkl"), "rb") as f:
         cli = pickle.load(f)
     diff = max(float(np.abs(cli["verb_output"] - verb).max()),
                float(np.abs(cli["noun_output"] - noun).max()))
     print(f"[gru] python -m asf_tpu_torch.tools.run_net --cfg gru.yaml TRAIN.ENABLE False "
-          f"TEST.ENABLE True: exit 0 in {time.perf_counter() - t0:.1f} s, scores {diff:.3g} max "
+          f"TEST.ENABLE True DATA_LOADER.NUM_WORKERS 0: exit 0 in {time.perf_counter() - t0:.1f} "
+          f"s, scores {diff:.3g} max "
           f"abs from the in-process run (gated at {CLI_TOL})", flush=True)
     check(diff <= CLI_TOL and list(cli["narration_id"]) == list(ids),
           f"the CLI's scores differ by {diff} > {CLI_TOL}")
@@ -1916,15 +1992,16 @@ def state_train(tag: str, card: str, cfg, ckpt: str, want: int, skipped: list):
     """``train(cfg)`` of a state model fine-tuned from ``ckpt``, with phase
     8's gates: ``want`` launches of ``logmel_bf16``, exactly the head leaves
     ``skipped`` skipped, frozen BN untouched, finite losses (``state_loss``
-    too) and the val record's 14 ``Val/state/*`` means in [0, 1]. Returns
-    the state, the launch counts and the records."""
+    too) and the val record's 14 ``Val/state/*`` means in [0, 1]; under a
+    train budget, a store of the train split and no worker for the train
+    loader, else no store. Returns the state and the launch counts."""
     from asf_tpu_torch.checkpoint import manager as cu
     from asf_tpu_torch.engine import train
     from asf_tpu_torch.engine.optimizer import is_frozen_bn_param
     from asf_tpu_torch.tools.loop_probe import StatsLog
 
     torch.cuda.reset_peak_memory_stats()
-    with StatsLog() as stats:
+    with StatsLog() as stats, _LoaderWatch() as watch:
         torch.cuda.synchronize()
         zero_launches()
         t0 = time.perf_counter()
@@ -1932,12 +2009,17 @@ def state_train(tag: str, card: str, cfg, ckpt: str, want: int, skipped: list):
         torch.cuda.synchronize()
         launches = read_launches()
         wall = time.perf_counter() - t0
+    stores = [(mode, round(store.nbytes / 2**20, 1)) for mode, store in watch.stores]
     print(f"[{tag}] train(cfg): launches {launches} (expected {want} of logmel_bf16), "
           f"{wall:.1f} s in train(cfg), peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; warnings {stats.warnings}",
-          flush=True)
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; stores (split, MB) {stores}, "
+          f"loaders that started workers {watch.workers}; warnings {stats.warnings}", flush=True)
     check(launches == {k: (want if k == "logmel_bf16" else 0) for k in REPLACES},
           f"{tag} train(cfg): launches {launches}, expected {want} of logmel_bf16")
+    stored = cfg.GPU.TRAIN_DEVICE_CACHE_MB > 0
+    check([m for m, _ in stores] == (["train"] if stored else [])
+          and not (stored and "train" in watch.workers),
+          f"{tag} train(cfg): stores {stores}, workers started by {watch.workers}")
     got = sorted(w.split()[3] for w in stats.warnings if w.startswith("pyth load: skipped"))
     check(got == skipped, f"the fine-tune skipped {got}, not {skipped}")
     check(stats.start_epochs == [1] and all(p.is_cuda for p in state.model.parameters()),
@@ -2015,7 +2097,8 @@ def state_test(tag: str, card: str, cfg, rows: list, views: int, want: int) -> d
     proc = subprocess.run(
         [sys.executable, "-m", "asf_tpu_torch.tools.run_net", "--cfg", yaml_path,
          "TRAIN.ENABLE", "False", "TEST.ENABLE", "True", "TEST.SAVE_RESULTS_PATH",
-         f"{tag}_cli.pkl"], cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+         f"{tag}_cli.pkl", "DATA_LOADER.NUM_WORKERS", "0"],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=600)
     check(proc.returncode == 0, f"run_net exited {proc.returncode}: {proc.stderr[-2000:]}")
     with open(os.path.join(tcfg.OUTPUT_DIR, "scores", f"{tag}_cli.pkl"), "rb") as f:
         cli = pickle.load(f)
@@ -2045,7 +2128,7 @@ def phase_state(card: str, epic_ckpt: str, root: str, gru_step: dict) -> dict:
 
     projections = ["head.projection_0", "head.projection_1", "head.projection_min_1"]
     out = {}
-    cfg = epic_gru_state_cfg()
+    cfg = epic_gru_state_cfg()  # under the defaults: the train chains from a device store
     cfg.SOLVER.MAX_EPOCH = 1
     cfg.LOG_PERIOD = 1
     cfg.LOG_MODEL_INFO = False
@@ -2053,6 +2136,7 @@ def phase_state(card: str, epic_ckpt: str, root: str, gru_step: dict) -> dict:
     cfg.OUTPUT_DIR = os.path.join(root, "gru_state_out")
     cfg.TRAIN.CHECKPOINT_FILE_PATH = epic_ckpt
     test_rows, n_attr = write_state(root, cfg, "gru", "gru_state", embeddings=True)
+    RUNS["gru state"] = cfg.clone()
     batch, max_nb = cfg.TRAIN.BATCH_SIZE, cfg.AUDIO_DATA.MAX_NB_SPECTROGRAMS
     n_train, n_val = len(GRU_TRAIN_BUCKETS), len(GRU_VAL_BUCKETS)
     state, out["gru state train(cfg)"] = state_train(
@@ -2121,7 +2205,7 @@ def phase_state(card: str, epic_ckpt: str, root: str, gru_step: dict) -> dict:
     out["gru state test(cfg)"] = state_test("gru_state", card, cfg, test_rows, 1,
                                             len(GRU_TEST_BUCKETS))
 
-    cfg = epic_state_cfg()
+    cfg = streamed(epic_state_cfg())
     cfg.SOLVER.MAX_EPOCH = 1
     cfg.LOG_PERIOD = 1
     cfg.LOG_MODEL_INFO = False
@@ -2129,6 +2213,7 @@ def phase_state(card: str, epic_ckpt: str, root: str, gru_step: dict) -> dict:
     cfg.OUTPUT_DIR = os.path.join(root, "state_out")
     cfg.TRAIN.CHECKPOINT_FILE_PATH = epic_ckpt
     test_rows, _ = write_state(root, cfg, "epic", "epic_state", embeddings=False)
+    RUNS["state"] = cfg.clone()
     batch = cfg.TRAIN.BATCH_SIZE
     n_train, n_val = EPIC_TRAIN // batch, -(-EPIC_VAL // batch)
     state, out["state train(cfg)"] = state_train(
@@ -2196,7 +2281,7 @@ def resnet_loop(card: str, arch: str, vgg_cfg) -> tuple[dict, dict]:
     from asf_tpu_torch.tools.loop_probe import StatsLog
 
     tag = f"{arch} train(cfg)"
-    cfg = resnet_cfg(arch, "vgg")
+    cfg = streamed(resnet_cfg(arch, "vgg"))
     for key, value in vgg_cfg.VGGSOUND.items():
         cfg.VGGSOUND[key] = value
     cfg.VGGSOUND.TEST_LIST = "test.pkl"  # phase 6's
@@ -2306,7 +2391,7 @@ def phase_slide(card: str, epic_ckpt: str, root: str) -> dict:
     whole = None
     for mode in ("whole_video", "action_bounds", "per_instance"):
         tag = f"slide {mode}"
-        cfg = epic_slide_cfg(mode)
+        cfg = streamed(epic_slide_cfg(mode))
         c = cfg.EPICKITCHENS
         c.AUDIO_DATA_FILE, c.ANNOTATIONS_DIR = os.path.join(root, "epic_audio"), root
         c.PROCESSED_TEST_LIST, c.VIDEO_DURS = "epic_test.pkl", SLIDE_DURATIONS
@@ -2317,6 +2402,8 @@ def phase_slide(card: str, epic_ckpt: str, root: str) -> dict:
         # The whole-video run reads in 8 worker processes; the other two
         # (a few batches) in this process.
         cfg.DATA_LOADER.NUM_WORKERS = LOADER_WORKERS if mode == "whole_video" else 0
+        RUNS[tag] = (cfg.clone(), os.path.join(cfg.OUTPUT_DIR, "scores",
+                                               cfg.TEST.SAVE_RESULTS_PATH))
         want = slide_windows(cfg, rows, durations)
         ds = EpicKitchensSlide(cfg, "test")
         sr = cfg.AUDIO_DATA.SAMPLING_RATE
@@ -3110,7 +3197,7 @@ def phase_main(card: str, vgg_ckpt: str, epic_root: str) -> tuple[dict, str]:
 
     root = os.path.join(epic_root, "main")
     os.makedirs(root)
-    cfg = epic_cfg()
+    cfg = streamed(epic_cfg())
     ek = cfg.EPICKITCHENS
     for k, v in write_main_originals(root, epic_root, MAIN_VERBS).items():
         ek[k] = v
@@ -3632,7 +3719,7 @@ def phase_archive(card: str, root: str, epic_run: dict, epic_ckpt: str) -> dict:
     sr = base.AUDIO_DATA.SAMPLING_RATE
     wav_dir = os.path.join(root, "epic_audio")
     t0 = time.perf_counter()
-    paths = write_archives(root, sr)
+    paths = RUNS["archives"] = write_archives(root, sr)
     sizes = {k: os.path.getsize(p) / 2**20 for k, p in paths.items()}
     t_write = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3743,7 +3830,7 @@ def phase_archive(card: str, root: str, epic_run: dict, epic_ckpt: str) -> dict:
     launches["archive test(cfg)"], epic = _archive_scores(
         "epic", tcfg, os.path.join(root, "epic_out", "scores", "epic_scores.pkl"),
         -(-EPIC_TEST * tcfg.TEST.NUM_ENSEMBLE_VIEWS // tcfg.TEST.BATCH_SIZE))
-    gcfg = epic_gru_cfg()
+    gcfg = streamed(epic_gru_cfg())
     c = gcfg.EPICKITCHENS
     c.AUDIO_DATA_FILE, c.ANNOTATIONS_DIR = paths["int16"], root
     c.PROCESSED_TRAIN_LIST, c.PROCESSED_VAL_LIST = "gru_train.pkl", "gru_val.pkl"
@@ -3754,7 +3841,7 @@ def phase_archive(card: str, root: str, epic_run: dict, epic_ckpt: str) -> dict:
     launches["archive gru test(cfg)"], _ = _archive_scores(
         "gru", gcfg, os.path.join(root, "gru_out", "scores", "gru_scores.pkl"),
         len(GRU_TEST_BUCKETS))
-    scfg = epic_slide_cfg("whole_video")
+    scfg = streamed(epic_slide_cfg("whole_video"))
     c = scfg.EPICKITCHENS
     c.AUDIO_DATA_FILE, c.ANNOTATIONS_DIR = paths["int16"], root
     c.PROCESSED_TEST_LIST, c.VIDEO_DURS = "epic_test.pkl", SLIDE_DURATIONS
@@ -3798,6 +3885,478 @@ def phase_archive(card: str, root: str, epic_run: dict, epic_ckpt: str) -> dict:
     return launches
 
 
+# -- phase 15: the device store, the val replay and the host LRU ---------------
+
+STORE_MB = 2048  # the GPU.*_DEVICE_CACHE_MB defaults the phase runs under
+# The device of phase 15's own stores, prefetchers and steps ("cpu" rehearses
+# the phase's code on the CPU, where its launch checks fail, as they must).
+STORE_DEVICE = "cuda"
+# The realistic archive and runs are ``tools/store_probe.py``'s: 18 videos of
+# 30 min of int16 at 24 kHz (1.55 GB), 800 train actions of 25-45 s (about
+# 1.3 GB in the store), 64 val rows, 4 precise BN batches.
+BIG_PROFILE = (8, 10)  # the traced steps of the realistic runs: first, count
+
+
+def _same(got, want, path: str = "batch") -> str | None:
+    """Where ``got`` and ``want`` (device batches) first differ: a key, a
+    dtype, a shape or a value; None where they agree bit for bit."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return f"{path}: keys {sorted(set(got) ^ set(want))}"
+        for k in want:
+            where = _same(got[k], want[k], f"{path}.{k}")
+            if where:
+                return where
+        return None
+    if isinstance(want, torch.Tensor):
+        if got.dtype != want.dtype or got.shape != want.shape or got.device != want.device:
+            return (f"{path}: {got.dtype} {tuple(got.shape)} against {want.dtype} "
+                    f"{tuple(want.shape)}")
+        return None if torch.equal(got, want) else f"{path}: values"
+    return None if got == want else f"{path}: {got!r:.60} against {want!r:.60}"
+
+
+def _store_of(dataset):
+    from asf_tpu_torch.data.device_store import DeviceSegmentStore
+
+    return DeviceSegmentStore.try_build(dataset, STORE_MB << 20, STORE_DEVICE)
+
+
+def _card_batches(cfg, split: str, stored: bool):
+    """An epoch (0) of ``split``'s batches on the card, the loader in this
+    process: streamed, or gathered from a store built for the split; and
+    the store (None where streamed)."""
+    from asf_tpu_torch.data.loader import construct_loader
+    from asf_tpu_torch.data.prefetch import Prefetcher
+
+    c = cfg.clone()
+    c.DATA_LOADER.NUM_WORKERS = 0
+    ld = construct_loader(c, split)
+    store = _store_of(ld.dataset) if stored else None
+    if stored:
+        check(store is not None, f"no store for {split} of {c.EPICKITCHENS.AUDIO_DATA_FILE}")
+        ld.attach_store(store)
+    ld.set_epoch(0)
+    return list(Prefetcher(ld, STORE_DEVICE, depth=0, store=store)), store
+
+
+def check_store_batches(card: str, sets: dict) -> None:
+    """(a) Every batch of an epoch gathered from the store equals the
+    streamed device batch bit for bit, for each of ``sets`` (name -> (config,
+    splits))."""
+    t0 = time.perf_counter()
+    done = {}
+    for name, (cfg, splits) in sets.items():
+        for split in splits:
+            want, _ = _card_batches(cfg, split, False)
+            got, store = _card_batches(cfg, split, True)
+            check(len(got) == len(want) > 0, f"{name} {split}: {len(got)} stored batches, "
+                  f"{len(want)} streamed")
+            for i, (g, w) in enumerate(zip(got, want)):
+                where = _same(g, w)
+                check(where is None, f"{name} {split} batch {i}: the store's differs at {where}")
+            shape = tuple(want[0]["waveform"].shape)
+            done[f"{name} {split}"] = (len(got), shape, str(want[0]["waveform"].dtype)[6:],
+                                       round(store.nbytes / 2**20, 1))
+            del got, want, store
+    torch.cuda.empty_cache()
+    print(f"[store] (a) every batch from the store equals the streamed device batch bit for "
+          f"bit (every key; (batches, first batch's waveform, dtype, store MB)): {done}; "
+          f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
+
+
+class _LoaderWatch:
+    """Records, while on, the split of each loader that starts worker
+    processes, each store built (with its dataset's split) and each loader a
+    store is attached to."""
+
+    def __enter__(self):
+        from asf_tpu_torch.data import device_store, loader
+
+        self.workers, self.stores, self.attached = [], [], []
+        self._saved = (loader.AsfLoader._loader, loader.AsfLoader.attach_store,
+                       device_store.DeviceSegmentStore.__dict__["try_build"])
+        loader_fn, attach = self._saved[:2]
+        build = device_store.DeviceSegmentStore.try_build
+
+        def _loader(ld):
+            if ld._dl is None and ld.num_workers > 0:
+                self.workers.append(ld.dataset.mode)
+            return loader_fn(ld)
+
+        def attach_store(ld, store):
+            self.attached.append(ld)
+            return attach(ld, store)
+
+        def try_build(dataset, budget, device):
+            store = build(dataset, budget, device)
+            if store is not None:
+                self.stores.append((dataset.mode, store))
+            return store
+
+        loader.AsfLoader._loader = _loader
+        loader.AsfLoader.attach_store = attach_store
+        device_store.DeviceSegmentStore.try_build = staticmethod(try_build)
+        return self
+
+    def __exit__(self, *exc):
+        from asf_tpu_torch.data import device_store, loader
+
+        loader.AsfLoader._loader, loader.AsfLoader.attach_store = self._saved[:2]
+        device_store.DeviceSegmentStore.try_build = self._saved[2]
+
+
+def _stored(cfg, out: str):
+    """``cfg`` under the store and val replay defaults, writing into ``out``."""
+    from asf_tpu_torch.config import get_cfg
+
+    defaults = get_cfg().GPU
+    cfg = cfg.clone()
+    cfg.GPU.TRAIN_DEVICE_CACHE_MB = defaults.TRAIN_DEVICE_CACHE_MB
+    cfg.GPU.TEST_DEVICE_CACHE_MB = defaults.TEST_DEVICE_CACHE_MB
+    cfg.GPU.VAL_DEVICE_CACHE_MB = defaults.VAL_DEVICE_CACHE_MB
+    cfg.OUTPUT_DIR = out
+    return cfg
+
+
+def _losses_check(tag: str, got: list, want: list, card: str) -> None:
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    print(f"[store] {tag}: losses {[round(v, 6) for v in got]} against the streamed run's "
+          f"{[round(v, 6) for v in want]}: first {got[0] - want[0]:.3g} apart, largest "
+          f"relative gap {max(rel):.3g} (gated at {ARCHIVE_LOSS_TOL}) | {card}", flush=True)
+    check(len(got) == len(want) and got[0] == want[0] and max(rel) <= ARCHIVE_LOSS_TOL,
+          f"{tag}: losses {got} against the streamed run's {want}")
+
+
+def _store_train(card: str, cfg, tag: str, want: int) -> tuple:
+    """``train(cfg)`` under the defaults, gated on a store of the train
+    split, no worker process for the train loader and ``want`` launches of
+    ``logmel_bf16``: (state, launches, train losses, val records, val
+    iterations)."""
+    from asf_tpu_torch.engine import train
+    from asf_tpu_torch.tools.loop_probe import StatsLog
+
+    with StatsLog() as stats, _LoaderWatch() as watch:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        state = train(cfg)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        wall = time.perf_counter() - t0
+    (mode, store), = watch.stores
+    print(f"[store] (b) {tag} under the defaults: store of the {mode} split "
+          f"{store.nbytes / 2**20:.1f} MB (read {store.read_s:.2f} s, copied "
+          f"{store.upload_s:.3f} s); loaders that started workers {watch.workers}; launches "
+          f"{launches}; {wall:.1f} s | {card}", flush=True)
+    check(mode == "train" and "train" not in watch.workers,
+          f"store of {mode}, workers started by {watch.workers}: the train loader must start none")
+    check(launches == {k: (want if k == "logmel_bf16" else 0) for k in REPLACES},
+          f"{tag} from the store: launches {launches}, expected {want} of logmel_bf16")
+    return (state, launches, [r["loss"] for r in stats.of("train_iter")], stats.of("val_epoch"),
+            stats.of("val_iter"))
+
+
+def store_vgg_train(card: str, loop_cfg, run1_losses: list, root: str) -> dict:
+    """(b), (d), (e) on phase 5's flagship run: ``train(cfg)`` of one epoch
+    under the defaults against phase 5's streamed run 1 (the same LR
+    schedule); of two epochs (val replayed at epoch 2), the replay against a
+    streamed val epoch of the same model, and the sync debug mode over one
+    step from the store. Returns the launch counts."""
+    from asf_tpu_torch.data.loader import construct_loader
+    from asf_tpu_torch.data.prefetch import Prefetcher
+    from asf_tpu_torch.engine.eval_loop import build_val_meter, eval_epoch
+    from asf_tpu_torch.engine.steps import make_eval_step, make_train_step
+    from asf_tpu_torch.tools.loop_probe import StatsLog
+    from asf_tpu_torch.utils.lr_policy import get_lr_at_epoch
+
+    def run(epochs: int) -> tuple:
+        cfg = _stored(loop_cfg, os.path.join(root, f"store_vgg{epochs}_out"))
+        cfg.SOLVER.MAX_EPOCH = epochs
+        cfg.DATA_LOADER.NUM_WORKERS = 0  # the val loader too reads in this process
+        return cfg, _store_train(card, cfg, f"flagship train(cfg), {epochs} epoch(s) at "
+                                 f"B={TRAIN_BATCH}", epochs * EPOCH_LAUNCHES)
+
+    _, (state, one, losses, _, _) = run(1)
+    del state
+    _losses_check("(b) flagship train(cfg), one epoch", losses, run1_losses, card)
+    cfg, (state, two, _, vals, viters) = run(2)
+    launches = {k: one[k] + two[k] for k in one}
+
+    # (d) epoch 2's val replayed against a streamed val epoch of the same model
+    walls = [sum(r["dt"] for r in viters[:2]), sum(r["dt"] for r in viters[2:])]
+    vcfg = cfg.clone()
+    ld = construct_loader(vcfg, "val")
+    with StatsLog() as vstats:
+        eval_epoch(ld, state.model, make_eval_step(vcfg, STORE_DEVICE),
+                   build_val_meter(vcfg, len(ld)), 1, vcfg, STORE_DEVICE)
+    (streamed_val,) = vstats.of("val_epoch")
+    in_process = sum(r["dt"] for r in vstats.of("val_iter"))
+    keys = ("top1_err", "top5_err")
+    print(f"[store] (d) val epoch 2 replayed from the card {[vals[1][k] for k in keys]}, a "
+          f"streamed val epoch of the same model {[streamed_val[k] for k in keys]}; val wall "
+          f"(the val_iter records' dt summed, the loader in this process) epoch 1 "
+          f"{walls[0]:.4f} s (streamed and kept), epoch 2 {walls[1]:.4f} s (replayed); the "
+          f"streamed epoch again {in_process:.4f} s | {card}",
+          flush=True)
+    check(len(vals) == 2 and all(vals[1][k] == streamed_val[k] for k in keys),
+          f"the replayed val epoch {vals[-1]} against a streamed one {streamed_val}")
+
+    # (e) one train step from the store under the sync debug mode
+    sld = construct_loader(vcfg, "train")
+    sld.attach_store(_store_of(sld.dataset))
+    step = make_train_step(cfg, STORE_DEVICE)
+    lr = get_lr_at_epoch(cfg, 0.0)
+    batches = iter(Prefetcher(sld, STORE_DEVICE, depth=0, store=sld.device_store))
+    found = sync_calls(lambda: step(state, next(batches), lr))
+    print(f"[store] (e) synchronizing calls of one train step from the store (offsets made, "
+          f"copied, gathered, the step): {found}", flush=True)
+    check(all(where.startswith("asf_tpu_torch/engine/pipeline.py:") for _m, where in found),
+          f"a step from the store waits for the card beyond pack_pathways: {found}")
+    del state, sld, batches
+    return launches
+
+
+def store_gru_train(card: str, root: str) -> dict:
+    """(b) for the chains: phase 8's GRU ``train(cfg)`` under the defaults,
+    its loaders in this process, against phase 8's streamed run: the first
+    loss 0 apart and every loss within ``ARCHIVE_LOSS_TOL``. Returns the
+    launch counts."""
+    gcfg, want_losses, want = RUNS["gru train"]
+    cfg = _stored(gcfg, os.path.join(root, "store_gru_out"))
+    cfg.DATA_LOADER.NUM_WORKERS = 0
+    state, launches, losses, _, _ = _store_train(
+        card, cfg, f"GRU train(cfg), one epoch of {cfg.TRAIN.BATCH_SIZE}-chain batches", want)
+    del state
+    _losses_check("(b) GRU train(cfg), one epoch", losses, want_losses, card)
+    return launches
+
+
+def store_tests(card: str) -> dict:
+    """(c) The 10-view VGG-Sound, the GRU's and the whole-video slide's
+    ``test(cfg)`` under the defaults against their phases' streamed
+    scores, within ``CLI_TOL``; each test loader starts no worker. Returns
+    the launch counts by path."""
+    from asf_tpu_torch.engine import test
+    from asf_tpu_torch.tools.loop_probe import StatsLog
+
+    out = {}
+    vcfg, vpreds = RUNS["vgg test"]
+    gcfg, gpkl = RUNS["gru test"]
+    scfg, spkl = RUNS["slide whole_video"]
+    for tag, cfg, want in (("vgg", vcfg, vpreds), ("gru", gcfg, gpkl), ("slide", scfg, spkl)):
+        cfg = _stored(cfg, cfg.OUTPUT_DIR)
+        cfg.TEST.SAVE_RESULTS_PATH = f"store_{tag}.pkl"
+        with StatsLog() as stats, _LoaderWatch() as watch:
+            torch.cuda.synchronize()
+            zero_launches()
+            t0 = time.perf_counter()
+            got = test(cfg)
+            torch.cuda.synchronize()
+            out[f"store {tag} test(cfg)"] = launches = read_launches()
+            wall = time.perf_counter() - t0
+        if isinstance(want, str):
+            with open(want, "rb") as f:
+                saved = pickle.load(f)
+            pairs = [(got[0][0], saved["verb_output"]), (got[0][1], saved["noun_output"])]
+        else:
+            pairs = [(got[0], want)]
+        diff = max(float(np.abs(a - b).max()) for a, b in pairs)
+        iters = stats.of("test_iter")
+        (mode, store), = watch.stores
+        print(f"[store] (c) {tag} test(cfg) from the store ({store.nbytes / 2**20:.1f} MB, read "
+              f"{store.read_s:.2f} s): launches {launches}, {wall:.2f} s, {len(iters)} "
+              f"iterations, first batch's wait {iters[0]['dt_data']:.4f} s; scores {diff:.3g} "
+              f"max abs from the streamed run's (gated at {CLI_TOL}); workers started by "
+              f"{watch.workers} | {card}", flush=True)
+        check(mode == "test" and not watch.workers and diff <= CLI_TOL
+              and launches["logmel_bf16"] == len(iters),
+              f"{tag} test(cfg) from the store: scores {diff:.3g} apart, workers {watch.workers}")
+    return out
+
+
+def check_lru(card: str) -> None:
+    """(f) Phase 7's train list from the float32 on-grid archive, two epochs
+    with ``NUM_WORKERS`` 0: the LRU's batches equal the direct reads', and
+    in epoch 2 every read hits."""
+    from asf_tpu_torch.data.loader import construct_loader
+
+    cfg = RUNS["epic"].clone()
+    cfg.EPICKITCHENS.AUDIO_DATA_FILE = RUNS["archives"]["grid"]
+    cfg.DATA_LOADER.NUM_WORKERS = 0
+    runs = {}
+    for mb in (0, 256):
+        cfg.GPU.HOST_WAVEFORM_CACHE_MB = mb
+        ld = construct_loader(cfg, "train")
+        epochs, hits = [], []
+        for epoch in (0, 1):
+            ld.set_epoch(epoch)
+            t0 = time.perf_counter()
+            epochs.append(list(ld))
+            hits.append((time.perf_counter() - t0,
+                         None if ld.dataset._seg_cache is None else
+                         (ld.dataset._seg_cache.hits, ld.dataset._seg_cache.misses)))
+        runs[mb] = (epochs, hits, ld.dataset)
+    (direct, dtimes, _), (cached, ctimes, ds) = runs[0], runs[256]
+    for e, (got, want) in enumerate(zip(cached, direct)):
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(all(np.array_equal(g[k], w[k]) and g[k].dtype == w[k].dtype
+                      for k in ("waveform", "n_valid", "index")),
+                  f"LRU epoch {e} batch {i} differs from the direct reads'")
+    segments = len({(ds._video[r], *ds._segment(r)) for r in range(len(ds._video))})
+    read = sum(len(b["index"]) for b in cached[1])
+    (h1, m1), (h2, m2) = ctimes[0][1], ctimes[1][1]
+    print(f"[store] (f) LRU over the float32 on-grid archive, phase 7's train list "
+          f"({cached[0][0]['waveform'].dtype}): batches equal the direct reads' in both epochs; "
+          f"{segments} unique segments, {len(ds._seg_cache)} kept "
+          f"({ds._seg_cache.nbytes / 2**20:.1f} MB); epoch 2: {h2 - h1} hits, {m2 - m1} misses "
+          f"over {read} items; host s an epoch "
+          f"direct {[round(t, 3) for t, _ in dtimes]}, LRU {[round(t, 3) for t, _ in ctimes]} | "
+          f"{card}", flush=True)
+    check(read == segments == h2 - h1 and m2 == m1 == segments,
+          f"LRU epoch 2: {h2 - h1} hits, {m2 - m1} misses, {segments} segments, {read} items")
+
+
+def trace_idle(trace_dir: str) -> tuple[float, float, int]:
+    """(busy ms, window ms, kernels) of the Chrome trace in ``trace_dir``:
+    the union of the device's kernel, copy and set intervals over the span
+    from the trace's first event to its last."""
+    from asf_tpu_torch.tools.profile_forward import busy_us
+
+    (name,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, name)) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+    return busy_us(device) / 1e3, (hi - lo) / 1e3, len(device)
+
+
+def big_train(card: str, cfg) -> dict:
+    """One realistic ``train(cfg)`` through ``store_probe.timed_train``, its
+    ``BIG_PROFILE`` steps traced: its launches, losses, steady iteration,
+    data waits, receiving thread's CPU, peak memory, idle share over the
+    traced steps and, stored, the store and its loader."""
+    from asf_tpu_torch.tools.store_probe import timed_train
+
+    cfg.GPU.PROFILE_DIR = os.path.join(cfg.OUTPUT_DIR, "trace")
+    cfg.GPU.PROFILE_START_ITER, cfg.GPU.PROFILE_NUM_ITERS = BIG_PROFILE
+    with _LoaderWatch() as watch:
+        zero_launches()
+        r = timed_train(cfg, BIG_PROFILE)
+        launches = read_launches()
+    busy, window, kernels = trace_idle(cfg.GPU.PROFILE_DIR)
+    return {**r, "launches": launches, "idle": 1 - busy / window, "busy": busy,
+            "window": window, "kernels": kernels, "core": r["cpu_ms"] / r["it_ms"],
+            "workers": watch.workers, "stores": watch.stores, "attached": watch.attached}
+
+
+def store_realistic(card: str, epic_ckpt_cfg, root: str) -> dict:
+    """(b) for EPIC and the printout at a realistic size: the realistic
+    archive's ``train(cfg)`` under the defaults and streamed through 8
+    workers; the store's build, an offset batch's host time and the
+    gather's. Deletes the archive; returns the launch counts."""
+    from asf_tpu_torch.data.prefetch import _host
+    from asf_tpu_torch.tools import store_probe as sp
+
+    t0 = time.perf_counter()
+    base = epic_ckpt_cfg.clone()
+    path, gb = sp.write_archive(root, base)
+    base.BN.NUM_BATCHES_PRECISE = sp.PRECISE
+    print(f"[store] wrote the realistic archive ({sp.VIDEOS} videos of {sp.VIDEO_SECS} s, "
+          f"int16, {gb:.3f} GB; {sp.TRAIN_ROWS} train actions of {sp.ACTION_SECS[0]}-"
+          f"{sp.ACTION_SECS[1]} s, {sp.VAL_ROWS} val) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    try:
+        runs = {}
+        for tag in ("streamed", "store"):  # the store last: it stays on the card after
+            cfg = _stored(base, os.path.join(root, f"big_{tag}_out"))
+            if tag == "streamed":
+                streamed(cfg)
+            cfg.DATA_LOADER.NUM_WORKERS = LOADER_WORKERS
+            runs[tag] = big_train(card, cfg)
+        s, w = runs["store"], runs["streamed"]
+        (mode, store), = s["stores"]
+        n_train = sp.TRAIN_ROWS // base.TRAIN.BATCH_SIZE
+        want = n_train + sp.PRECISE + -(-sp.VAL_ROWS // base.TRAIN.BATCH_SIZE)
+        for tag, r in runs.items():
+            check(r["launches"] == {k: (want if k == "logmel_bf16" else 0) for k in REPLACES},
+                  f"realistic {tag} train(cfg): launches {r['launches']}, expected {want}")
+        check(mode == "train" and "train" not in s["workers"] and not w["stores"]
+              and "train" in w["workers"],
+              f"store of {mode}; workers started by {s['workers']} (stored), {w['workers']}")
+        check(store.nbytes >= 2**30, f"the store holds {store.nbytes / 2**30:.3f} GiB, not 1")
+        _losses_check("(b) EPIC train(cfg) at a realistic size", s["losses"], w["losses"], card)
+
+        # an offset batch's host time, the gather's time at B = 32
+        ld = s["attached"][0]
+        ld.set_epoch(1)
+        t0 = time.perf_counter()
+        offsets = list(ld)
+        make_us = (time.perf_counter() - t0) / len(offsets) * 1e6
+        starts = _host(offsets[0]["wave_start"]).to(STORE_DEVICE)
+        n_valid = _host(offsets[0]["n_valid"]).to(STORE_DEVICE)
+        gather_ms = cuda_ms(lambda: store.gather(starts, n_valid), reps=20)
+        rate = store.nbytes / 1e9 / (store.read_s + store.upload_s)
+        print(f"[store] realistic store: {store.nbytes / 2**20:.1f} MB resident "
+              f"({len(ld.dataset.ref_seg_keys())} segments), read from the archive in "
+              f"{store.read_s:.2f} s (page cache warm: written just before), copied to the card "
+              f"in {store.upload_s:.3f} s, {rate:.3f} GB/s for the build; an offset batch of "
+              f"B={base.TRAIN.BATCH_SIZE} {make_us:.1f} µs on the host (mean of {len(offsets)}); "
+              f"the gather {gather_ms:.4f} ms (CUDA events, median of 5 runs of 20) | {card}",
+              flush=True)
+        for tag, r in runs.items():
+            print(f"[store] realistic EPIC train(cfg), {tag} ({LOADER_WORKERS} workers for the "
+                  f"val loader{'' if tag == 'store' else ' and the train loader'}): "
+                  f"{r['steps']} steps at B={base.TRAIN.BATCH_SIZE} x "
+                  f"{base.AUDIO_DATA.NUM_FRAMES} frames, steady iteration {r['it_ms']:.3f} ms "
+                  f"(median dt of iterations 2-{r['steps']} outside the traced ones), data wait "
+                  f"{r['wait_ms']:.3f} ms, first batch's wait {r['first_wait_s']:.4f} s; card idle "
+                  f"{r['idle']:.3f} of the {BIG_PROFILE[1]} traced steps (busy {r['busy']:.3f} "
+                  f"of {r['window']:.3f} ms, {r['kernels']} device events, under "
+                  f"torch.profiler); the receiving thread {r['cpu_ms']:.3f} CPU ms a batch "
+                  f"(the train prefetcher's thread_time over the epoch's batches), "
+                  f"{r['core']:.3f} of a core at the steady pace; peak {r['peak_gib']:.3f} GiB; "
+                  f"{r['wall_s']:.1f} s in train(cfg) | {card}", flush=True)
+        del store, ld, offsets, s["stores"], s["attached"]
+        return {f"store epic train(cfg) {k}": r["launches"] for k, r in runs.items()}
+    finally:
+        os.remove(path)
+        torch.cuda.empty_cache()
+
+
+def phase_store(card: str, loop_cfg, run1_losses: list, root: str) -> dict:
+    """Phase 15: the device store, the val replay and the host LRU (see the
+    module docstring); returns the launch counts of its runs."""
+    from asf_tpu_torch.data.loader import construct_loader
+
+    t_phase = time.perf_counter()
+    vtest, _ = RUNS["vgg test"]
+    gru, _ = RUNS["gru test"]
+    epic = RUNS["epic"]
+    archive = epic.clone()
+    archive.EPICKITCHENS.AUDIO_DATA_FILE = RUNS["archives"]["int16"]
+    check(_store_of(construct_loader(epic, "train").dataset) is None,
+          "phase 7's train list (transformed rows) built a store")
+    check_store_batches(card, {
+        "vgg": (loop_cfg, ("train",)), "vgg 10-view": (vtest, ("test",)),
+        "epic wav": (epic, ("val", "test")), "epic int16 archive": (archive, ("val", "test")),
+        "gru": (gru, ("train", "val")), "gru state": (RUNS["gru state"], ("train",)),
+        "state": (RUNS["state"], ("val",)),
+        "slide whole_video": (RUNS["slide whole_video"][0], ("test",)),
+        "slide action_bounds": (RUNS["slide action_bounds"][0], ("test",))})
+    launches = {"store train(cfg)": store_vgg_train(card, loop_cfg, run1_losses, root),
+                "store gru train(cfg)": store_gru_train(card, root)}
+    launches.update(store_tests(card))
+    check_lru(card)
+    launches.update(store_realistic(card, epic, root))
+    k2 = sum(c["logmel_bf16"] for c in launches.values())
+    print(f"[smoke] phase 15: {time.perf_counter() - t_phase:.1f} s, logmel_bf16 {k2} launches "
+          f"({ {k: c['logmel_bf16'] for k, c in launches.items()} }) | {card}", flush=True)
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card, sass = phase_device()
@@ -3830,6 +4389,7 @@ def main() -> None:
                                        train_timing["flagship"]["ms"])
         print(f"[smoke] phase 13: {time.perf_counter() - t13:.1f} s | {card}", flush=True)
         archive_launches = phase_archive(card, root, epic_run, epic_ckpt)
+        store_launches = phase_store(card, loop_cfg, run1_losses, root)
     check_instructions(card, sass, kernels)
     paths = {"eval": eval_launches, **{f"train {k}": v for k, v in train_launches.items()},
              "train(cfg)": loop_launches, "test(cfg)": test_launches,
@@ -3837,7 +4397,7 @@ def main() -> None:
              "gru train(cfg)": gru_train_launches, "gru test(cfg)": gru_test_launches,
              **state_launches, **resnet_launches, "slide test(cfg)": slide_launches,
              **{f"train {k}": v for k, v in bn_launches.items()}, **rank_launches,
-             **tool_launches, **tensor_launches, **archive_launches}
+             **tool_launches, **tensor_launches, **archive_launches, **store_launches}
     line = []
     for name, res in kernels.items():
         geometry, batch = LINE_BATCH[name]

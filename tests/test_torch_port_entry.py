@@ -144,7 +144,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
             "visualization/spectrograms.py", "state/dataset_prep.py", "main.py",
             "tools/predict.py", "tools/fix_weights.py", "tools/stress_test.py",
             "tools/extract_audio.py", "tools/wav_to_hdf5.py", "tools/hdf5_to_wav.py",
-            "parallel/tensor.py", "tools/verify_release_ckpt.py", "data/hdf5.py"} <= scanned
+            "parallel/tensor.py", "tools/verify_release_ckpt.py", "data/hdf5.py",
+            "data/cache.py", "data/device_store.py", "tools/store_probe.py"} <= scanned
     for path in files:
         bad = _imported_roots(path) & _FORBIDDEN
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"

@@ -48,6 +48,7 @@ from asf_tpu_torch.engine.steps import init_state
 from asf_tpu_torch.models import build_model
 from asf_tpu_torch.tools import run_net
 from test_torch_port_loop import _model_cfg, _rel_l2, _untimed, captured
+from test_torch_port_loop import jitted_jax_init  # noqa: F401  (fixture)
 
 SR = 8000
 CLIP_SECS = 0.32  # 2559 samples a clip
@@ -497,7 +498,7 @@ def _records(stats, kind):
     return [r for r in stats if r["_type"] == kind]
 
 
-def test_train_matches_jax_train(epic_root, start_pyth, tmp_path):
+def test_train_matches_jax_train(epic_root, start_pyth, tmp_path, jitted_jax_init):
     """One epoch on the transformed train list (float32 waveforms) from the
     same start, then val: every leaf within 1e-4 relative L2, the epoch
     losses and the val accuracies equal to 4 decimals."""
@@ -645,7 +646,7 @@ def _scores(cfg):
         return pickle.load(f)
 
 
-def test_test_matches_jax_test(epic_root, test_pyth, tmp_path):
+def test_test_matches_jax_test(epic_root, test_pyth, tmp_path, jitted_jax_init):
     """6 test rows in 3 views, B = 4 (the last batch ragged): verb and noun
     scores within 1e-5, labels, narration ids and the pickle's keys equal."""
     jcfg, pcfg = _loop_cfgs(epic_root, str(tmp_path))

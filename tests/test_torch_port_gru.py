@@ -59,6 +59,7 @@ from asf_tpu_torch.tools import run_net
 from asf_tpu_torch.utils.parser import load_config, parse_args
 from test_torch_port_epic import CLASSES, CLIP_SECS, SR, epic_cfgs, epic_root  # noqa: F401
 from test_torch_port_loop import _model_cfg, _rel_l2, captured
+from test_torch_port_loop import jitted_jax_init  # noqa: F401  (fixture)
 
 MAX_NB, OVERLAP, HIDDEN = 4, 0.1, 32
 F32_TOL, BF16_TOL, SCORE_TOL = 1e-5, 2e-2, 1e-5
@@ -517,7 +518,7 @@ def _precise_bn_float64(state_dict, cfg, batches) -> dict:
     return model.state_dict()
 
 
-def test_train_matches_jax_train(gru_root, start_pyth, tmp_path):
+def test_train_matches_jax_train(gru_root, start_pyth, tmp_path, jitted_jax_init):
     """One epoch of chains with noun embeddings from the same start, then
     val: every parameter and BN mean within 1e-4 relative L2 of the JAX
     package's, the epoch losses and the val accuracies equal to 4 decimals.
@@ -594,7 +595,7 @@ def _scores(cfg):
         return pickle.load(f)
 
 
-def test_test_matches_jax_test(gru_root, test_pyth, tmp_path):
+def test_test_matches_jax_test(gru_root, test_pyth, tmp_path, jitted_jax_init):
     """6 test chains in one view each, B = 4 (the last batch ragged): verb
     and noun scores within 1e-5, labels, narration ids and the pickle's keys
     equal."""

@@ -87,6 +87,46 @@ def _untimed(records):
     return [{k: v for k, v in r.items() if k not in _UNTIMED} for r in records]
 
 
+# One jitted ``model.init`` a model definition: the nodes of the config that
+# ``asf_tpu/models`` reads, the model's class and dtype, and init's keywords.
+_JITTED_INITS: dict = {}
+
+
+def jitted_init(model, cfg, **kwargs):
+    """``model.init`` as one compiled program, shared by every model of the
+    same definition in this process (a train and a test of one config
+    compile it once)."""
+    nodes = tuple(cfg[k].dump() for k in ("MODEL", "RESNET", "SLOWFAST", "AUDIO_DATA", "BN"))
+    key = (type(model), str(model.dtype), nodes, cfg.TPU.COMPUTE_DTYPE,
+           tuple(sorted(kwargs.items())))
+    if key not in _JITTED_INITS:
+        _JITTED_INITS[key] = jax.jit(lambda *a: model.init(*a, **kwargs))
+    return _JITTED_INITS[key]
+
+
+def _jitted_init_state(cfg, model, tx, rng, example):
+    """``asf_tpu.engine.steps.init_state`` with ``model.init`` compiled as
+    one program (``jitted_init``): the same variables as its op-by-op eager
+    init (35 s of compiles on this CPU for the GRU model, 8 s jitted), which
+    the start ``.pyth`` then overwrites leaf for leaf."""
+
+    class Jitted:
+        @staticmethod
+        def init(*args, **kwargs):
+            return jitted_init(model, cfg, **kwargs)(*args)
+
+    return jax_steps.init_state(cfg, Jitted(), tx, rng, example)
+
+
+@pytest.fixture
+def jitted_jax_init(monkeypatch):
+    """The JAX train and test loops' ``init_state`` jitted (``_jitted_init_state``)."""
+    from asf_tpu.engine import test_loop as jax_test_loop
+
+    for mod in (jax_train_loop, jax_test_loop):
+        monkeypatch.setattr(mod, "init_state", _jitted_init_state)
+
+
 # --------------------------------------------------------------------------
 # meters
 # --------------------------------------------------------------------------

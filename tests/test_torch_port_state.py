@@ -68,6 +68,7 @@ from test_alerts import FakeSink
 from test_torch_port_epic import CLASSES, epic_cfgs, epic_root  # noqa: F401
 from test_torch_port_gru import _gru
 from test_torch_port_loop import _model_cfg, _rel_l2, captured
+from test_torch_port_loop import _jitted_init_state, jitted_jax_init  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DOMAINS = ("pddl/domain.pddl", "pddl/full_domain.pddl")
@@ -515,29 +516,6 @@ def _start_pyth(cfg, path, seed):
             v.uniform_(0.5, 1.5, generator=g)
     torch.save({"model_state": sd, "epoch": 3}, path)
     return path
-
-
-def _jitted_init_state(cfg, model, tx, rng, example):
-    """``asf_tpu.engine.steps.init_state`` with ``model.init`` compiled as
-    one program: the same variables as its op-by-op eager init (35 s of
-    compiles on this CPU for the GRU model, 8 s jitted), which the start
-    ``.pyth`` then overwrites leaf for leaf."""
-
-    class Jitted:
-        @staticmethod
-        def init(*args, **kwargs):
-            return jax.jit(lambda *a: model.init(*a, **kwargs))(*args)
-
-    return jax_steps.init_state(cfg, Jitted(), tx, rng, example)
-
-
-@pytest.fixture
-def jitted_jax_init(monkeypatch):
-    from asf_tpu.engine import test_loop as jax_test_loop
-    from asf_tpu.engine import train_loop as jax_train_loop
-
-    for mod in (jax_train_loop, jax_test_loop):
-        monkeypatch.setattr(mod, "init_state", _jitted_init_state)
 
 
 def test_gru_state_train_matches_jax_train(state_root, tmp_path, jitted_jax_init):
