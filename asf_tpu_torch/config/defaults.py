@@ -1,18 +1,23 @@
 """Default config tree of the PyTorch port.
 
-The nodes the eval and train slices, the VGG-Sound and EPIC-KITCHENS data
-paths, ``train(cfg)`` and ``test(cfg)`` read, copied key-for-key from
-``asf_tpu/config/defaults.py`` so that YAMLs written for the JAX package
-merge unchanged, plus a ``GPU`` node: the counterparts of
+Every key of ``asf_tpu/config/defaults.py`` outside its ``TPU`` node, with
+the same default, so that YAMLs written for the JAX package or the
+reference merge unchanged, plus a ``GPU`` node: the counterparts of
 ``TPU.COMPUTE_DTYPE``, ``TPU.DSP_PRECISION``, ``TPU.SPEC_AUGMENT``,
-``TPU.INT16_TRANSFER``, ``TPU.WATCH_HISTOGRAMS``, ``TPU.PROFILE_*`` and the
-four caches ``TPU.{HOST_WAVEFORM,VAL_DEVICE,TRAIN_DEVICE,TEST_DEVICE}_CACHE_MB``,
-with the JAX package's defaults. Two store keys are not ported:
-``TPU.STORE_CAPACITY_QUANTUM_MB`` rounds the store's size up so that XLA's
-compile keys stay stable, and ``TPU.FUSED_STORE_GATHER`` feeds the gather
-into the K-step dispatch, neither of which the port has. There is no kernel
-on/off switch: on CUDA tensors the hand-written kernels always run, on CPU tensors
-their plain PyTorch versions do.
+``TPU.INT16_TRANSFER``, ``TPU.WATCH_HISTOGRAMS``, ``TPU.PROFILE_*``,
+``TPU.MODEL_PARALLEL`` and the four caches
+``TPU.{HOST_WAVEFORM,VAL_DEVICE,TRAIN_DEVICE,TEST_DEVICE}_CACHE_MB``, with
+the JAX package's defaults. The other ``TPU`` keys serve XLA's compiles, the
+TPU relay or the mesh, and are refused (a YAML dumped by ``asf_tpu`` sets
+them); ``tests/test_torch_port_coverage.py`` names the reason for each.
+
+Kept only so that such YAMLs merge, and read by nothing in the port:
+``TRAIN.SUPERVISION_TYPE``, ``DIST_BACKEND`` (``tools/run_net.py`` picks
+the backend: NCCL on a card, gloo with ``--device cpu``),
+``DATA_LOADER.ENABLE_MULTI_THREAD_DECODE``, ``DATA_LOADER.PIN_MEMORY`` (the
+prefetcher always pins) and ``TEST.SLIDE.LABEL_FRAME``. There is no kernel
+on/off switch: on CUDA tensors the hand-written kernels always run, on CPU
+tensors their plain PyTorch versions do.
 """
 
 from .cfg_node import CfgNode
@@ -40,6 +45,8 @@ _C.TRAIN = CfgNode()
 _C.TRAIN.ENABLE = True
 _C.TRAIN.DATASET = "vggsound"
 _C.TRAIN.BATCH_SIZE = 64
+# Read by nothing, as in asf_tpu: kept so that the reference's YAMLs merge.
+_C.TRAIN.SUPERVISION_TYPE = "half"
 _C.TRAIN.EVAL_PERIOD = 10
 _C.TRAIN.CHECKPOINT_PERIOD = 10
 _C.TRAIN.AUTO_RESUME = True
@@ -157,8 +164,8 @@ _C.VGGSOUND.TEST_LIST = "test.pkl"
 # EPIC-KITCHENS dataset options
 # ---------------------------------------------------------------------------
 _C.EPICKITCHENS = CfgNode()
-# The port reads a directory of per-video mono wav files, <video_id>.wav
-# (data/epickitchens.py); the JAX package reads one HDF5 file.
+# One HDF5 archive (data/hdf5.py) or a directory of per-video mono wav
+# files, <video_id>.wav (data/epickitchens.py:audio_source).
 _C.EPICKITCHENS.AUDIO_DATA_FILE = ""
 _C.EPICKITCHENS.ANNOTATIONS_DIR = ""
 _C.EPICKITCHENS.ORIGINAL_TRAIN_LIST = "EPIC_100_train.pkl"
@@ -199,6 +206,8 @@ _C.DATA_LOADER = CfgNode()
 _C.DATA_LOADER.NUM_WORKERS = 8
 # Taken from the repo's YAMLs and not read: the prefetcher always pins.
 _C.DATA_LOADER.PIN_MEMORY = True
+# Read by nothing, as in asf_tpu: kept so that the reference's YAMLs merge.
+_C.DATA_LOADER.ENABLE_MULTI_THREAD_DECODE = False
 
 # ---------------------------------------------------------------------------
 # Optimizer options
@@ -234,6 +243,9 @@ _C.OUTPUT_DIR = "./tmp"
 _C.RNG_SEED = 1
 _C.LOG_PERIOD = 10
 _C.LOG_MODEL_INFO = True
+# Read by nothing, as in asf_tpu: kept so that the reference's YAMLs merge.
+# tools/run_net.py picks the backend: NCCL on a card, gloo with --device cpu.
+_C.DIST_BACKEND = "nccl"
 
 # ---------------------------------------------------------------------------
 # Observers (engine/observers.py): TensorBoard scalars and val plots, W&B

@@ -7,7 +7,8 @@ semantics (YAML 1.1):
 
 * block mappings (``KEY: value``, ``KEY:`` over a more indented block or a
   block list at the key's own indent) and block lists (``- item``) whose
-  items are scalars or flow collections;
+  items are scalars, flow collections or block lists in the compact form
+  PyYAML writes (``- - a``), so that a config ``asf_tpu`` dumped reads back;
 * flow lists and flow mappings (``[a, [b, c]]``, ``{A: 1, B: [x]}``), nested,
   over as many lines as their brackets need;
 * plain scalars resolved as YAML 1.1 does: ``null``/``~``/empty, the twelve
@@ -277,9 +278,16 @@ class _Block:
                 break  # the list ends; a mapping around it may go on
             if ind > indent:
                 raise _Error(n, f"unexpected indent {ind} in a list at indent {indent}")
-            self.k += 1
             item = body[1:].strip()
-            if not item or _is_item(item) or _is_entry(item, n):
+            if _is_item(item):
+                # A list in a list, as PyYAML writes one ("- - a"): its items
+                # sit at the inner dash's column, the first on this line.
+                inner = ind + len(body) - len(item)
+                self.lines[self.k] = (n, inner, item)
+                out.append(self.seq(inner))
+                continue
+            self.k += 1
+            if not item or _is_entry(item, n):
                 raise _Error(n, "nested block nodes in a block list are outside the subset")
             out.append(self.value(item, n, indent))
         return out

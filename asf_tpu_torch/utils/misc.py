@@ -1,9 +1,9 @@
-"""Model info, memory gauges and class names.
+"""Model info, memory gauges, class names and ``discretize``.
 
 Counterpart of ``asf_tpu/utils/misc.py``: ``params_count``,
-``log_model_info`` and ``get_class_names``, with the card's memory from
-``torch.cuda`` where the JAX package reads the TPU's. The JAX package's XLA
-flop count (``flops_of``) has no counterpart here.
+``log_model_info``, ``get_class_names`` and ``discretize``, with the card's
+memory from ``torch.cuda`` where the JAX package reads the TPU's. The JAX
+package's XLA flop count (``flops_of``) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -11,10 +11,12 @@ from __future__ import annotations
 import json
 import os
 
+import numpy as np
 import torch
 from torch import nn
 
 from .logging import get_logger
+from .torch_setup import resolve_device
 
 logger = get_logger(__name__)
 
@@ -76,3 +78,44 @@ def get_class_names(path: str, parent_path: str = "", subset_path: str = ""):
         subset_ids = [class2idx[name] for name in subset if class2idx.get(name) is not None]
 
     return class_names, class_parent, subset_ids
+
+
+# JAX with 64-bit types off, as asf_tpu runs, holds a 64-bit input as 32-bit.
+_AS_32_BIT = {torch.float64: torch.float32, torch.int64: torch.int32,
+              torch.uint64: torch.uint32}
+
+
+def _as_compared(x: torch.Tensor, t):
+    """``x`` and threshold ``t`` as ``asf_tpu``'s ``x < t`` compares them
+    (JAX's promotion of a Python scalar): in a floating input's own dtype;
+    for an integer or bool input, in float32 against a Python float and in
+    its own dtype against a Python int (bool as int32). ``t`` is rounded, or
+    wrapped, into that dtype; integers then compare as int64, which holds
+    every 32-bit value."""
+    if x.dtype.is_floating_point:
+        dtype = x.dtype
+    elif isinstance(t, int) and not isinstance(t, bool):
+        dtype = torch.int32 if x.dtype == torch.bool else x.dtype
+    else:
+        dtype = torch.float32
+    x, t = x.to(dtype), torch.tensor(t).to(dtype).item()
+    return (x, t) if dtype.is_floating_point else (x.to(torch.int64), t)
+
+
+def discretize(x, low_t: float = -0.5, high_t: float = 0.5,
+               low: float = -1.0, high: float = 1.0, device=None) -> torch.Tensor:
+    """Values below ``low_t`` -> ``low``, above ``high_t`` -> ``high``, the
+    rest (the thresholds themselves and NaN) -> 0, as float32 whatever the
+    input's dtype: ``asf_tpu/utils/misc.py:discretize``, compared as it
+    compares (``_as_compared``). A tensor stays on its own device; anything
+    else goes to ``resolve_device(device)``: the card unless ``device="cpu"``.
+    """
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x), device=resolve_device(device))
+    x = x.to(_AS_32_BIT.get(x.dtype, x.dtype))
+    x_lo, lo_t = _as_compared(x, low_t)
+    x_hi, hi_t = _as_compared(x, high_t)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return torch.where(x_lo < lo_t, torch.tensor(low, **f32),
+                       torch.where(x_hi > hi_t, torch.tensor(high, **f32),
+                                   torch.zeros((), **f32)))

@@ -85,7 +85,11 @@ failed check (the script then exits non-zero and prints no result):
    the meter's. The same test then runs through ``python -m
    asf_tpu_torch.tools.run_net`` with a YAML config written at run time
    (its loader's 8 workers: the one CLI run that starts workers; the CLI
-   runs of phases 7-9 read in the CLI's process); it
+   runs of phases 7-9 read in the CLI's process), which also sets the
+   three keys that the port keeps only so that ``asf_tpu``'s YAMLs merge,
+   each off its default (``DIST_BACKEND: gloo``,
+   ``TRAIN.SUPERVISION_TYPE: full``,
+   ``DATA_LOADER.ENABLE_MULTI_THREAD_DECODE: True``); it
    must exit 0 and its scores must lie within ``CLI_TOL`` of the in-process
    run's. Before that, while the test loader's 8 workers read, neither
    ``nvidia-smi`` nor ``/proc/<pid>/fd`` may show a worker holding the card
@@ -246,7 +250,12 @@ failed check (the script then exits non-zero and prints no result):
    most). Then
    ``stress_test`` (n = 8192, 5 s; its TFLOP/s printed), and the spectrogram
    dumper's ``_item_pathways`` on one item (one ``logmel_bf16`` launch)
-   within ``BF16_TOL`` of the plain pipeline on the CPU.
+   within ``BF16_TOL`` of the plain pipeline on the CPU. Last,
+   ``utils/misc.py:discretize`` (plain ``torch.where``) on the card's
+   float32, bf16, int32 and bool tensors, with the values at the
+   thresholds, NaN and +-inf, and on a numpy array with no device: each
+   equal to a numpy expression of the same rule, float32, on the input's
+   device (the numpy array's: the card).
 13. Tensor parallelism (``GPU.MODEL_PARALLEL``, ``parallel/tensor.py``). Two
    gloo ranks on ``cuda:0`` as a 1 x 2 data x model grid (``run_rank``
    with ``backend="gloo"``; NCCL takes a card a rank): the flagship's
@@ -442,6 +451,10 @@ TEST_LAUNCHES = TEST_FILES * TEST_VIEWS // TEST_BATCH
 # Ensembled scores of one checkpoint, test(cfg) in this process against the
 # run_net CLI in another: the same kernels on the same inputs.
 CLI_TOL = 1e-4
+# Keys the port keeps only so that asf_tpu's YAMLs merge (read by nothing),
+# each off its default in the YAML of vgg_cli's run_net runs (phases 6, 10).
+YAML_ONLY_KEYS = {"DIST_BACKEND": "gloo", "TRAIN.SUPERVISION_TYPE": "full",
+                  "DATA_LOADER.ENABLE_MULTI_THREAD_DECODE": "True"}
 # Phase 7's synthetic EPIC-KITCHENS set: videos of EPIC_VIDEO_SECS; train rows
 # in 10 batches of 32, val 2 x 32 + 16, test rows in 10 views (10 batches).
 EPIC_VIDEOS, EPIC_VIDEO_SECS = 8, 120.0
@@ -1335,8 +1348,11 @@ def vgg_cli(cfg, preds: np.ndarray, labels: np.ndarray, tag: str) -> None:
     root = os.path.dirname(cfg.OUTPUT_DIR)
     name = tag.split()[0].replace("(cfg)", "")
     yaml_path = os.path.join(root, f"{name}.yaml")
+    ycfg = cfg.clone()
+    for key, value in YAML_ONLY_KEYS.items():
+        ycfg.merge_from_list([key, value])
     with open(yaml_path, "w") as f:
-        f.write(cfg.dump())
+        f.write(ycfg.dump())
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "asf_tpu_torch.tools.run_net", "--cfg", yaml_path,
@@ -1348,7 +1364,8 @@ def vgg_cli(cfg, preds: np.ndarray, labels: np.ndarray, tag: str) -> None:
         cli = pickle.load(f)
     diff = float(np.abs(cli["output"] - preds).max())
     print(f"[{tag}] python -m asf_tpu_torch.tools.run_net --cfg {name}.yaml TRAIN.ENABLE False "
-          f"TEST.ENABLE True ({cfg.DATA_LOADER.NUM_WORKERS} loader workers): exit 0 in "
+          f"TEST.ENABLE True ({cfg.DATA_LOADER.NUM_WORKERS} loader workers; the YAML sets "
+          f"{', '.join(f'{k}: {v}' for k, v in YAML_ONLY_KEYS.items())}): exit 0 in "
           f"{time.perf_counter() - t0:.1f} s, scores {diff:.3g} max "
           f"abs from the in-process run (gated at {CLI_TOL})", flush=True)
     check(diff <= CLI_TOL and np.array_equal(cli["labels"], labels),
@@ -3383,10 +3400,47 @@ def phase_tools(card: str, kernels: dict, loop_cfg, epic_ckpt: str, root: str) -
           f"_item_pathways launches {paths['spectrograms']}")
     check(max_err <= BF16_TOL[0] and mean_err <= BF16_TOL[1],
           f"_item_pathways: max {max_err} mean {mean_err} > {BF16_TOL}")
+    check_discretize(card)
     print(f"[smoke] phase 12: {t_main - t0:.1f} s for predict, {t_stress - t_main:.1f} s for "
-          f"main, {time.perf_counter() - t_stress:.1f} s for stress_test and the dumper | {card}",
-          flush=True)
+          f"main, {time.perf_counter() - t_stress:.1f} s for stress_test, the dumper and "
+          f"discretize | {card}", flush=True)
     return paths
+
+
+def check_discretize(card: str) -> None:
+    """``utils/misc.py:discretize`` on tensors on the card and on a numpy
+    array with no device, each held exactly to the same rule in numpy: the
+    values, float32, and the input's device (the numpy array's: the card)."""
+    from asf_tpu_torch.utils.misc import discretize
+
+    def rule(v, low_t=-0.5, high_t=0.5, low=-1.0, high=1.0):
+        v = np.asarray(v, dtype=np.float32)
+        return np.where(v < low_t, low, np.where(v > high_t, high, 0.0)).astype(np.float32)
+
+    edges = np.array([-0.5, 0.5, -0.51, 0.51, np.nan, np.inf, -np.inf, 0.0], np.float32)
+    x = np.concatenate([np.random.default_rng(16).standard_normal(4096).astype(np.float32),
+                        edges])
+    bf16 = torch.from_numpy(x).to(TOOLS_DEVICE, torch.bfloat16)
+    ints = np.arange(-3, 4, dtype=np.int32)
+    cases = [  # (name, input, its values as numpy, keyword arguments)
+        ("float32", torch.from_numpy(x).to(TOOLS_DEVICE), x, {}),
+        ("float32 -0.25/0.75 -> -3/7", torch.from_numpy(x).to(TOOLS_DEVICE), x,
+         dict(low_t=-0.25, high_t=0.75, low=-3, high=7)),
+        ("bfloat16", bf16, bf16.float().cpu().numpy(), {}),
+        ("int32", torch.from_numpy(ints).to(TOOLS_DEVICE), ints, {}),
+        ("bool", torch.from_numpy(ints > 0).to(TOOLS_DEVICE), ints > 0, {}),
+        ("numpy, device=None", x, x, {}),
+    ]
+    want_device = torch.empty(0, device=TOOLS_DEVICE).device
+    for name, given, values, kw in cases:
+        got = discretize(given, **kw)
+        check(got.dtype == torch.float32 and got.device == want_device,
+              f"discretize({name}): {got.dtype} on {got.device}")
+        check(np.array_equal(got.cpu().numpy(), rule(values, **kw)),
+              f"discretize({name}) differs from the numpy rule")
+    print(f"[tools] utils.misc.discretize on {want_device}: {[c[0] for c in cases]} "
+          f"({x.size} values with -+0.5, -+0.51, NaN, -+inf): each equal to the numpy rule, "
+          f"float32, on {want_device} | {card}", flush=True)
 
 
 def timed_steps(cfg, state, device) -> dict:

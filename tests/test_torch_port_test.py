@@ -146,6 +146,8 @@ SNIPPETS = [
     "top:\n  sub:\n    - 1\n    - 2.5\n  other: NO\nnext: runs/a-0,5s\n",
     "k: 0\nm: -3\nn: +4\no: 1_000\np: 1.\nq: 1e5\nr: ''\ns: {}\nt: [ ]\nu: 'a: b'\n",
     "[1, {A: b}]\n", "plain words\n", "", "# only a comment\n",
+    "A:\n- - 3\n- - 4\n", "A:\n  B:\n  - - 1\n    - 1\n  - - 1\n    - [2, 3]\n  C: 1\n",
+    "- - - 1\n    - 2\n  - - 3\n- x\n",
 ]
 
 
@@ -156,7 +158,8 @@ def test_yaml_lite_forms_read_as_pyyaml(text):
 
 OUTSIDE = ["k: 010\n", "k: 0x10\n", "k: 1:30\n", "k: 2001-12-14\n", "k: &a 1\n", "k: *a\n",
            "k: !!str 1\n", "k: |\n  x\n", "- a: 1\n", "a: 1\na: 2\n", "k: [a:b]\n",
-           "k: foo\n  bar\n", "---\nk: 1\n", "k: 1\n\tl: 2\n", "k: [1, 2\n"]
+           "k: foo\n  bar\n", "---\nk: 1\n", "k: 1\n\tl: 2\n", "k: [1, 2\n",
+           "- - a: 1\n", "- -\n"]
 
 
 @pytest.mark.parametrize("text", OUTSIDE)
