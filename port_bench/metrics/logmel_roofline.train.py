@@ -1,0 +1,8 @@
+"""The log-mel kernel (K1's logmel_f32_kernel or K2's logmel_tc_kernel) against its
+least time, in train steps."""
+
+from port_bench import readers
+
+
+def read(run):
+    return readers.logmel_roofline(run)
