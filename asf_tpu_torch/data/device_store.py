@@ -14,6 +14,11 @@ bit: the samples past ``n_valid`` are zero, as the host's zero-filled clip
 buffers hold them. Padded chain windows and empty chunks point at the zero
 pad with ``n_valid`` 1, as ``loader.collate`` pads them.
 
+The build is two spans (``utils/spans.py``): ``store.read``, the segments
+into pinned memory, and ``store.upload``, the copy to the card, whose
+seconds the store keeps as ``read_s`` and ``upload_s``; each gather is a
+``store.gather`` span.
+
 ``try_build`` gives None, with the JAX package's log line, where the budget
 is 0 or less, the dataset has no table (a row with a host
 ``transformation``, which must see float samples on the host; a VGG-Sound
@@ -29,13 +34,13 @@ the gather fused into its K-step dispatch have no counterpart here.
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..utils.logging import get_logger
+from ..utils.spans import span
 
 logger = get_logger(__name__)
 
@@ -85,30 +90,29 @@ class DeviceSegmentStore:
         if total >= INT32_MAX:
             logger.warning("Device segment store disabled: >2^31 samples")
             return None
-        t0 = time.perf_counter()
         device = torch.device(device)
         dtype = np.int16 if itemsize == 2 else np.float32
-        host = torch.empty(total, dtype=torch.int16 if itemsize == 2 else torch.float32,
-                           pin_memory=device.type == "cuda")
-        mega = host.numpy()
-        bases, off = {}, 0
-        for (key, _n), n in zip(table, lengths):
-            if n > 0:
-                seg = dataset.read_segment(key)
-                if seg.shape != (n,) or seg.dtype != dtype:
-                    logger.warning("Device segment store disabled: segment %s is %s/%s, "
-                                   "expected (%d,)/%s", key, seg.shape, seg.dtype, n,
-                                   np.dtype(dtype))
-                    return None
-                mega[off : off + n] = seg
-            bases[key] = off
-            off += n
-        mega[off:] = 0
-        t1 = time.perf_counter()
-        dev = host.to(device) if device.type == "cuda" else host
-        t2 = time.perf_counter()
+        with span("store.read") as read:
+            host = torch.empty(total, dtype=torch.int16 if itemsize == 2 else torch.float32,
+                               pin_memory=device.type == "cuda")
+            mega = host.numpy()
+            bases, off = {}, 0
+            for (key, _n), n in zip(table, lengths):
+                if n > 0:
+                    seg = dataset.read_segment(key)
+                    if seg.shape != (n,) or seg.dtype != dtype:
+                        logger.warning("Device segment store disabled: segment %s is %s/%s, "
+                                       "expected (%d,)/%s", key, seg.shape, seg.dtype, n,
+                                       np.dtype(dtype))
+                        return None
+                    mega[off : off + n] = seg
+                bases[key] = off
+                off += n
+            mega[off:] = 0
+        with span("store.upload") as upload:
+            dev = host.to(device) if device.type == "cuda" else host
         store = cls(dev, bases, clip_samples)
-        store.read_s, store.upload_s = t1 - t0, t2 - t1
+        store.read_s, store.upload_s = read.seconds(), upload.seconds()
         logger.info("Device segment store: %d segments, %.1f MB resident on %s (read %.2f s, "
                     "copied in %.3f s) — batches ship int32 offsets instead of waveforms",
                     len(table), store.nbytes / 2**20, device, store.read_s, store.upload_s)
@@ -122,11 +126,12 @@ class DeviceSegmentStore:
         waveforms ``starts.shape + (clip_samples,)``, zero past ``n_valid``:
         ``gather_in_graph`` of the JAX package. A row is a window of the
         buffer's unfolded view, so no (rows, S) index is built."""
-        S = self.clip_samples
-        rows = self.mega.unfold(0, S, 1).index_select(0, starts.reshape(-1))
-        wave = rows.view(*starts.shape, S)
-        past = torch.arange(S, device=wave.device) >= n_valid.unsqueeze(-1)
-        return wave.masked_fill_(past, 0)
+        with span("store.gather"):
+            S = self.clip_samples
+            rows = self.mega.unfold(0, S, 1).index_select(0, starts.reshape(-1))
+            wave = rows.view(*starts.shape, S)
+            past = torch.arange(S, device=wave.device) >= n_valid.unsqueeze(-1)
+            return wave.masked_fill_(past, 0)
 
 
 def resolve_offsets(batch: dict, store: Optional[DeviceSegmentStore]) -> dict:

@@ -29,7 +29,9 @@ the same side stream, and the store's gather runs there too, before the
 event is recorded (``asf_tpu/data/loader.py:_upload``, :91-102), so the
 consumer still waits on one event and takes a batch with a streamed
 batch's keys, shapes and dtypes; nothing here waits for the card. On the
-CPU the same code runs on CPU tensors.
+CPU the same code runs on CPU tensors. Each batch's pinning, copy and
+gather is the span ``prefetch.upload`` (``utils/spans.py``), on the worker
+thread.
 
 The JAX package's K-step macro-batches and device-side LR (``group``,
 ``lr_fn``) exist for XLA's dispatch and are not ported.
@@ -44,6 +46,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from .device_store import resolve_offsets
 
 DEPTH = 2  # batches copied ahead of the step by ``prefetch``
@@ -101,18 +104,20 @@ class Prefetcher:
 
     # -- producer ----------------------------------------------------------
     def _upload(self, host: dict):
-        """(device batch, event or None, pinned host tensors)."""
-        if "lengths" in host:
-            host = {**host, "host_lengths": host["lengths"].tolist()}
-        if not self.cuda:
-            return resolve_offsets(_tensors(host, _host), self.store), None, None
-        pinned = _tensors(host, lambda a: _host(a).pin_memory())
-        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-            dev = _tensors(pinned, lambda t: t.to(self.device, non_blocking=True))
-            dev = resolve_offsets(dev, self.store)
-            event = torch.cuda.Event()
-            event.record(self._stream)
-        return dev, event, pinned
+        """(device batch, event or None, pinned host tensors), as the span
+        ``prefetch.upload``."""
+        with span("prefetch.upload"):
+            if "lengths" in host:
+                host = {**host, "host_lengths": host["lengths"].tolist()}
+            if not self.cuda:
+                return resolve_offsets(_tensors(host, _host), self.store), None, None
+            pinned = _tensors(host, lambda a: _host(a).pin_memory())
+            with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+                dev = _tensors(pinned, lambda t: t.to(self.device, non_blocking=True))
+                dev = resolve_offsets(dev, self.store)
+                event = torch.cuda.Event()
+                event.record(self._stream)
+            return dev, event, pinned
 
     def _put(self, item):
         while not self._stopped.is_set():

@@ -204,8 +204,10 @@ def eval_epoch(val_loader, model, eval_step, val_meter, cur_epoch, cfg, device,
             if (cur_iter + 1) % log_period == 0:
                 flush()
             val_meter.iter_tic()
+        val_meter.iter_toc()
         flush()
     finally:
+        val_meter.iter_toc()
         if not replay:
             src.close()
     if keep:

@@ -1,10 +1,10 @@
 """Meters: windowed scalars and the train and val epoch stats.
 
-Counterpart of ``asf_tpu/engine/meters.py:29-245`` (``Timer``,
-``ScalarMeter``, ``TrainMeter``, ``ValMeter``, ``mem_stats``), of its
-single-task ``TestMeter`` (:393-460) and of the verb/noun meters
-(``EPICTrainMeter``, ``EPICValMeter``, ``EPICTestMeter``, :245-537, with
-their state-head parts), with the same ``json_stats`` records
+Counterpart of ``asf_tpu/engine/meters.py:29-245`` (``ScalarMeter``,
+``TrainMeter``, ``ValMeter``, ``mem_stats``), of its single-task
+``TestMeter`` (:393-460) and of the verb/noun meters (``EPICTrainMeter``,
+``EPICValMeter``, ``EPICTestMeter``, :245-537, with their state-head
+parts), with the same ``json_stats`` records
 (``_type``, ``epoch``, ``iter``, ``dt``, ``dt_data``, ``dt_net``, ``eta``,
 ``top1_err``, ``top5_err``, ``loss``, ``lr``; ``test_iter`` with
 ``cur_iter`` and ``time_diff``, ``test_final`` with ``top1_acc`` and
@@ -24,15 +24,18 @@ videos, each window's scores summed into its slot.
 The loops log an iteration's stats at a later flush, once its numbers are
 off the card, so they take the iteration's times (``iter_times()``) at its
 ``iter_toc`` and hand them to ``log_iter_stats``; without them a record
-reads the timers as they stand when it is logged.
+reads the times as they stand when it is logged. The times are the spans
+``loop.data_wait`` (``dt_data``) and ``loop.step`` (``dt_net``) that
+``iter_tic``, ``data_toc`` and ``iter_toc`` begin and end, so that one
+clock serves the meters and the spans (the span stands for the JAX
+package's ``Timer``); ``dt`` is their sum.
 """
 
 from __future__ import annotations
 
 import datetime
-import time
 from collections import deque
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +43,7 @@ import torch
 from ..utils.logging import log_json_stats
 from . import metrics
 from ..utils.misc import gpu_mem_gb, host_mem_gb
+from ..utils.spans import span
 
 
 def mem_stats() -> Dict[str, str]:
@@ -51,24 +55,35 @@ def mem_stats() -> Dict[str, str]:
     return out
 
 
-class Timer:
-    def __init__(self):
-        self.reset()
+class _IterationSpans:
+    """An iteration's host times, as the program's spans (``utils/spans.py``):
+    ``iter_tic`` begins ``loop.data_wait``, ``data_toc`` ends it and begins
+    ``loop.step``, ``iter_toc`` ends whichever is open. A time whose span is
+    still open reads to now."""
 
-    def reset(self):
-        self._start = time.perf_counter()
-        self._paused: Optional[float] = None
-        self._total = 0.0
+    _wait = _step = None
 
-    def pause(self):
-        if self._paused is None:
-            self._total += time.perf_counter() - self._start
-            self._paused = time.perf_counter()
+    def iter_tic(self):
+        self.iter_toc()
+        self._wait, self._step = span("loop.data_wait").begin(), None
 
-    def seconds(self) -> float:
-        if self._paused is None:
-            return self._total + (time.perf_counter() - self._start)
-        return self._total
+    def data_toc(self):
+        _end(self._wait)
+        self._step = span("loop.step").begin()
+
+    def iter_toc(self):
+        _end(self._step)
+        _end(self._wait)
+
+    def _times(self) -> Tuple[float, float, float]:
+        wait = self._wait.seconds() if self._wait is not None else 0.0
+        step = self._step.seconds() if self._step is not None else 0.0
+        return wait + step, wait, step
+
+
+def _end(s) -> None:
+    if s is not None and s.end_ns is None:
+        s.end()
 
 
 class ScalarMeter:
@@ -91,30 +106,15 @@ def _eta(seconds_per_iter: float, iters_left: int) -> str:
     return str(datetime.timedelta(seconds=int(seconds_per_iter * max(iters_left, 0))))
 
 
-class _BaseEpochMeter:
+class _BaseEpochMeter(_IterationSpans):
     def __init__(self, epoch_iters: int, cfg):
         self.cfg = cfg
         self.epoch_iters = epoch_iters
         self.max_epoch = cfg.SOLVER.MAX_EPOCH * epoch_iters
-        self.iter_timer = Timer()
-        self.data_timer = Timer()
-        self.net_timer = Timer()
-
-    def iter_tic(self):
-        self.iter_timer.reset()
-        self.data_timer.reset()
-
-    def iter_toc(self):
-        self.iter_timer.pause()
-
-    def data_toc(self):
-        self.data_timer.pause()
-        self.net_timer.reset()
 
     def iter_times(self) -> Tuple[float, float, float]:
         """(iteration, data wait, net) seconds of the current iteration."""
-        return (self.iter_timer.seconds(), self.data_timer.seconds(),
-                self.net_timer.seconds())
+        return self._times()
 
 
 class TrainMeter(_BaseEpochMeter):
@@ -172,7 +172,7 @@ class TrainMeter(_BaseEpochMeter):
         log_json_stats({
             "_type": "train_epoch",
             "epoch": f"{cur_epoch + 1}/{self.cfg.SOLVER.MAX_EPOCH}",
-            "dt": self.iter_timer.seconds(),
+            "dt": self.iter_times()[0],
             "top1_err": self.num_top1_mis / max(self.num_samples, 1),
             "top5_err": self.num_top5_mis / max(self.num_samples, 1),
             "loss": self.loss_total / max(self.num_samples, 1),
@@ -234,29 +234,17 @@ class ValMeter(_BaseEpochMeter):
         return is_best, {"top1_acc": 100.0 - top1}
 
 
-class _TestIterations:
-    """A test meter's iteration timers and its ``test_iter`` record every
+class _TestIterations(_IterationSpans):
+    """A test meter's iteration times and its ``test_iter`` record every
     ``log_period`` iterations."""
 
     def __init__(self, log_period: int):
         self.log_period = max(1, int(log_period))
-        self.iter_timer = Timer()
-        self.data_timer = Timer()
         self.stats = {}
-
-    def iter_tic(self):
-        self.iter_timer.reset()
-        self.data_timer.reset()
-
-    def iter_toc(self):
-        self.iter_timer.pause()
-
-    def data_toc(self):
-        self.data_timer.pause()
 
     def iter_times(self) -> Tuple[float, float]:
         """(iteration, data wait) seconds of the current iteration."""
-        return self.iter_timer.seconds(), self.data_timer.seconds()
+        return self._times()[:2]
 
     def log_iter_stats(self, cur_iter: int, times=None):
         if (cur_iter + 1) % self.log_period != 0:

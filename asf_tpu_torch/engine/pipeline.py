@@ -12,7 +12,9 @@ for all of them, SpecAugment drawn row by row, and pathways of ``(B, N, 1,
 T, F)`` for the GRU model, which flattens them again for its trunk.
 
 The pipeline runs under ``torch.no_grad()``: no gradient flows into the
-waveform in the JAX package, and the log-mel kernels have no backward.
+waveform in the JAX package, and the log-mel kernels have no backward. It
+is the span ``step.frontend``; the copy of the slow pathway's index to the
+card, which waits for the card, is ``wait.slow_index`` (``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..dsp.logmel import LogMelParams, log_mel_spectrogram
 from ..dsp.pathways import slow_indices
 from ..dsp.specaugment import spec_augment
 from ..parallel import dist
+from ..utils.spans import span
 
 
 def pack_pathways(cfg, spec: torch.Tensor) -> list[torch.Tensor]:
@@ -40,7 +43,9 @@ def pack_pathways(cfg, spec: torch.Tensor) -> list[torch.Tensor]:
             f"Model arch {arch} is not in "
             f"{list(cfg.MODEL.SINGLE_PATHWAY_ARCH) + list(cfg.MODEL.MULTI_PATHWAY_ARCH)}")
     idx = torch.from_numpy(slow_indices(spec.shape[1], cfg.SLOWFAST.ALPHA))
-    return [x.unsqueeze(1) for x in (spec.index_select(1, idx.to(spec.device)), spec)]
+    with span("wait.slow_index"):  # a blocking copy: on the card the host waits for it
+        idx = idx.to(spec.device)
+    return [x.unsqueeze(1) for x in (spec.index_select(1, idx), spec)]
 
 
 class InputPipeline:
@@ -63,26 +68,27 @@ class InputPipeline:
     def __call__(self, waveform: torch.Tensor, n_valid: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  train: bool = False) -> list[torch.Tensor]:
-        chains = waveform.shape[:-1] if waveform.dim() == 3 else None
-        if chains is not None:
-            waveform = waveform.reshape(-1, waveform.shape[-1])
-            n_valid = n_valid.reshape(-1)
-        if waveform.dtype == torch.int16:
-            # 16-bit PCM shipped as raw samples; the same scale as the host
-            # conversion of the upstream wav loader.
-            waveform = waveform.float() / 32768.0
-        spec = log_mel_spectrogram(
-            waveform, self.params, n_valid_samples=n_valid,
-            out_frames=self.cfg.AUDIO_DATA.NUM_FRAMES,
-        )
-        if train and self.augment:
-            if generator is None:
-                raise ValueError("SpecAugment needs a generator in training")
-            spec = spec_augment(spec, generator, self.share)
-        paths = pack_pathways(self.cfg, spec)
-        if chains is not None:
-            paths = [x.reshape(*chains, *x.shape[1:]) for x in paths]
-        return paths
+        with span("step.frontend"):
+            chains = waveform.shape[:-1] if waveform.dim() == 3 else None
+            if chains is not None:
+                waveform = waveform.reshape(-1, waveform.shape[-1])
+                n_valid = n_valid.reshape(-1)
+            if waveform.dtype == torch.int16:
+                # 16-bit PCM shipped as raw samples; the same scale as the host
+                # conversion of the upstream wav loader.
+                waveform = waveform.float() / 32768.0
+            spec = log_mel_spectrogram(
+                waveform, self.params, n_valid_samples=n_valid,
+                out_frames=self.cfg.AUDIO_DATA.NUM_FRAMES,
+            )
+            if train and self.augment:
+                if generator is None:
+                    raise ValueError("SpecAugment needs a generator in training")
+                spec = spec_augment(spec, generator, self.share)
+            paths = pack_pathways(self.cfg, spec)
+            if chains is not None:
+                paths = [x.reshape(*chains, *x.shape[1:]) for x in paths]
+            return paths
 
 
 def make_input_pipeline(cfg, device) -> InputPipeline:

@@ -26,7 +26,12 @@ One step is: the input pipeline with SpecAugment, the train-mode forward
 (BN running statistics update here), the loss, ``backward``, the LR written
 into the optimizer, the optimizer step, then ``grad_norm`` and
 ``param_norm`` (over every parameter, BN's included, the latter after the
-update) and ``state.step + 1``. Where the JAX step takes the state and
+update) and ``state.step + 1``; the spans ``step.frontend`` (the pipeline),
+``step.forward`` (forward and loss), ``step.backward`` (``zero_grad`` and
+``backward``), ``step.update`` (the LR and the optimizer step) and
+``step.stats`` (metrics, rank reduction, norms, watch) cover it
+(``utils/spans.py``); an eval step is ``step.frontend`` and
+``step.forward``. Where the JAX step takes the state and
 returns a new one (donating the old), this step updates ``state.model``,
 ``state.optimizer`` and ``state.step`` in place and returns ``(parts,
 stats)``: loss parts and top-k statistics as 0-d tensors on the device, so
@@ -60,6 +65,7 @@ from torch import nn
 
 from ..models import losses as losses_mod
 from ..parallel import dist, tensor
+from ..utils.spans import span
 from . import metrics as metrics_mod
 from .optimizer import construct_optimizer, set_lr
 from .pipeline import make_input_pipeline
@@ -297,16 +303,21 @@ def make_train_step(cfg, device, watch: bool = False):
     def train_step(state: TrainState, batch: dict, lr: float):
         model, optimizer = state.model, state.optimizer
         net = model if state.ddp is None else state.ddp
+        # train() walks every module on the host: before the front end, whose
+        # slow index waits for the card, so that the walk overlaps the card's work
         net.train()
         paths = pipeline(batch["waveform"], batch["n_valid"], state.generator, train=True)
-        preds = forward(net, paths, batch)
-        loss, parts = loss_fn(preds, batch["labels"], batch.get("lengths"))
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        set_lr(optimizer, lr)
-        optimizer.step()
-        params = [p for p in model.parameters() if p.grad is not None]
-        with torch.no_grad():
+        with span("step.forward"):
+            preds = forward(net, paths, batch)
+            loss, parts = loss_fn(preds, batch["labels"], batch.get("lengths"))
+        with span("step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with span("step.update"):
+            set_lr(optimizer, lr)
+            optimizer.step()
+        with span("step.stats"), torch.no_grad():
+            params = [p for p in model.parameters() if p.grad is not None]
             parts = {k: v.detach() for k, v in parts.items()}
             stats = device_metrics(preds, batch["labels"])
             if dist.is_initialized():
@@ -343,7 +354,9 @@ def make_eval_step(cfg, device):
 
     @torch.inference_mode()
     def eval_step(model: nn.Module, batch: dict):
-        model.eval()
-        return forward(model, pipeline(batch["waveform"], batch["n_valid"], train=False), batch)
+        model.eval()  # before the front end, as in train_step
+        paths = pipeline(batch["waveform"], batch["n_valid"], train=False)
+        with span("step.forward"):
+            return forward(model, paths, batch)
 
     return eval_step

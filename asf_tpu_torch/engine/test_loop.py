@@ -20,7 +20,10 @@ verb/noun schema.
 
 The loop does not wait for the card a batch: each batch's probabilities,
 labels and clip ids are queued as one copy into pinned host memory with an
-event, and the meter takes them once that event has completed. The ragged
+event, and the meter takes them once that event has completed. The loop's
+spans (``utils/spans.py``) are the meter's ``loop.data_wait`` and
+``loop.step`` (the eval step and the gather across ranks) and
+``loop.meter`` (the copy, its event and the meter's update). The ragged
 last batch runs with its real rows. The JAX package's padding to a static
 batch (``pad_batch_to``) and its K-step ``multi_eval`` exist for XLA and
 are not ported. The test split's segments are kept on the card under
@@ -57,6 +60,7 @@ from ..data.prefetch import prefetch
 from ..models import build_model
 from ..parallel import dist, tensor
 from ..utils.logging import get_logger, setup_logging
+from ..utils.spans import span
 from ..utils.torch_setup import disable_tf32, resolve_device
 from . import metrics
 from .meters import EPICTestMeter, EPICTestMeterSlide, TestMeter
@@ -117,21 +121,23 @@ def perform_test(test_loader, model, eval_step, test_meter, device, host_group=N
             metadata = batch.get("metadata")
             if shared and scores:
                 out, metadata = _gather_host(out, metadata, batch["host_rows"], host_group)
+            test_meter.iter_toc()
             if not lead:
-                test_meter.iter_toc()
                 test_meter.iter_tic()
                 continue
-            host = [t.to("cpu", non_blocking=True) for t in out]
-            event = None
-            if cuda:
-                event = torch.cuda.Event()
-                event.record()
-            test_meter.iter_toc()
-            fetches.append((cur_iter, test_meter.iter_times(), host, metadata, event))
-            apply_ready(block=False)
+            with span("loop.meter"):
+                host = [t.to("cpu", non_blocking=True) for t in out]
+                event = None
+                if cuda:
+                    event = torch.cuda.Event()
+                    event.record()
+                fetches.append((cur_iter, test_meter.iter_times(), host, metadata, event))
+                apply_ready(block=False)
             test_meter.iter_tic()
+        test_meter.iter_toc()
         apply_ready(block=True)
     finally:
+        test_meter.iter_toc()
         src.close()
     return test_meter.finalize_metrics() if lead else None
 

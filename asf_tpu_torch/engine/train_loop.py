@@ -15,8 +15,9 @@ the meter takes them (and the NaN check reads them) at a later flush once
 that event has completed, as the JAX loop's metrics thread does (:95-139).
 Each step's host times are taken at its ``iter_toc`` and logged with its
 numbers; the flush itself falls between one iteration's ``iter_toc`` and
-the next one's ``iter_tic``. The LR of each step is a host float from
-``utils/lr_policy``.
+the next one's ``iter_tic``. The loop's spans (``utils/spans.py``) are the
+meter's ``loop.data_wait`` and ``loop.step`` and a ``loop.flush`` around
+each flush. The LR of each step is a host float from ``utils/lr_policy``.
 
 With the state head each step also copies ``state_loss`` and
 ``state_pred_max_abs``, and at the flush ``check_state_alerts`` reads every
@@ -34,7 +35,8 @@ every ``LOG_PERIOD``-th step go to W&B, read at the flush with the step's
 other numbers. The alerts go through the same logger, which always logs
 them as warnings. ``GPU.PROFILE_DIR`` traces ``PROFILE_NUM_ITERS`` steps of
 the first epoch with ``torch.profiler`` into a Chrome trace there (the JAX
-package's ``TPU.PROFILE_DIR``, ``:83-85``).
+package's ``TPU.PROFILE_DIR``, ``:83-85``), the program's spans among the
+operators.
 
 In a process group (``tools/run_net.py``; ``parallel/dist.py``) every
 rank trains the same model on its rows of each host batch: the model is
@@ -88,6 +90,7 @@ from ..parallel import dist, tensor
 from ..utils import lr_policy
 from ..utils.logging import get_logger, setup_logging
 from ..utils.misc import log_model_info
+from ..utils.spans import span
 from ..utils.torch_setup import disable_tf32, resolve_device
 from .eval_loop import DeviceValCache, build_val_meter, eval_epoch
 from .meters import EPICTrainMeter, TrainMeter
@@ -212,18 +215,19 @@ def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, de
                     scalar_logger.log(scalars, global_step=global_step)
 
     def flush(block: bool = False):
-        if pending:
-            host = torch.stack([p[5] for p in pending]).to("cpu", non_blocking=True)
-            watches = [None if p[6] is None else
-                       (p[6][0], *(t.to("cpu", non_blocking=True) for t in p[6][1:]))
-                       for p in pending]
-            event = None
-            if cuda:
-                event = torch.cuda.Event()
-                event.record()
-            fetches.append(([p[:5] for p in pending], host, watches, event))
-            pending.clear()
-        apply_ready(block)
+        with span("loop.flush"):
+            if pending:
+                host = torch.stack([p[5] for p in pending]).to("cpu", non_blocking=True)
+                watches = [None if p[6] is None else
+                           (p[6][0], *(t.to("cpu", non_blocking=True) for t in p[6][1:]))
+                           for p in pending]
+                event = None
+                if cuda:
+                    event = torch.cuda.Event()
+                    event.record()
+                fetches.append(([p[:5] for p in pending], host, watches, event))
+                pending.clear()
+            apply_ready(block)
 
     src = prefetch(train_loader, device)
     try:
@@ -244,8 +248,10 @@ def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg, de
             if len(pending) >= log_period:
                 flush()
             train_meter.iter_tic()
+        train_meter.iter_toc()
         flush(block=True)
     finally:
+        train_meter.iter_toc()
         src.close()
         profile.stop()
     train_meter.log_epoch_stats(cur_epoch)

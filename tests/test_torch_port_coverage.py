@@ -101,6 +101,7 @@ NAMES = {
     "dsp/specaugment.py:spec_augment_batch": "asf_tpu_torch.dsp.specaugment:spec_augment",
     "dsp/warp.py:warp_time_taps": "tpu-workaround",
     "dsp/warp.py:sparse_image_warp_time": "asf_tpu_torch.dsp.warp:sparse_image_warp",
+    "engine/meters.py:Timer": "asf_tpu_torch.utils.spans:span",
     "engine/metrics.py:topk_accuracies_masked": "asf_tpu_torch.engine.metrics:topk_accuracies",
     "engine/metrics.py:multitask_topk_accuracies_masked":
         "asf_tpu_torch.engine.metrics:multitask_topk_accuracies",
