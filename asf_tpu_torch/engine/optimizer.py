@@ -65,30 +65,51 @@ class SGD(torch.optim.Optimizer):
         buf = momentum * buf + (1 - dampening) * d      (buf starts at zero)
         d   = d + momentum * buf   if nesterov   else   buf
         p   = p - lr * d
+
+    ``lr`` is read from ``lr_tensors``, a 0-d tensor a group on its
+    parameters' device and in their dtype, which ``set_lr`` writes with the
+    groups' ``"lr"`` (``write_lr``): a step captured in
+    a CUDA graph (``engine/graphs.py``) reads each step's LR there, and an
+    eager step reads it there too, so that both compute ``lr * d`` and then
+    ``p - lr * d`` alike. The rule reads no other host value that changes
+    from step to step, so the optimizer is ``graphable``.
     """
+
+    graphable = True
 
     def __init__(self, params, lr: float, momentum: float = 0.0, dampening: float = 0.0,
                  nesterov: bool = False, weight_decay: float = 0.0):
         defaults = dict(lr=lr, momentum=momentum, dampening=dampening, nesterov=nesterov,
                         weight_decay=weight_decay)
         super().__init__(params, defaults)
+        self.lr_tensors = [torch.full((), group["lr"], dtype=group["params"][0].dtype,
+                                      device=group["params"][0].device)
+                           if group["params"] else torch.zeros(())
+                           for group in self.param_groups]
+
+    def write_lr(self) -> None:
+        for group, lr in zip(self.param_groups, self.lr_tensors):
+            lr.fill_(group["lr"])
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("SGD.step takes no closure")
-        for group in self.param_groups:
+        for group, lr in zip(self.param_groups, self.lr_tensors):
             params, grads = _with_grads(group)
             if not params:
                 continue
             m = group["momentum"]
             if m:
-                bufs = [self.state[p].setdefault("momentum_buffer", torch.zeros_like(p))
-                        for p in params]
+                states = [self.state[p] for p in params]
+                for st, p in zip(states, params):
+                    if "momentum_buffer" not in st:
+                        st["momentum_buffer"] = torch.zeros_like(p)
+                bufs = [st["momentum_buffer"] for st in states]
                 torch._foreach_mul_(bufs, m)
                 torch._foreach_add_(bufs, grads, alpha=1.0 - group["dampening"])
                 grads = torch._foreach_add(grads, bufs, alpha=m) if group["nesterov"] else bufs
-            torch._foreach_add_(params, grads, alpha=-group["lr"])
+            torch._foreach_sub_(params, torch._foreach_mul(grads, lr))
 
 
 def _bias_correction(beta: float, t: int) -> float:
@@ -162,9 +183,12 @@ def construct_optimizer(cfg, model: nn.Module) -> torch.optim.Optimizer:
 
 
 def set_lr(optimizer: torch.optim.Optimizer, new_lr: float) -> None:
-    """Writes ``new_lr`` into every param group (``asf_tpu/engine/optimizer.py:104-121``)."""
+    """Writes ``new_lr`` into every param group (``asf_tpu/engine/optimizer.py:104-121``),
+    and into ``SGD``'s LR tensors."""
     for group in optimizer.param_groups:
         group["lr"] = new_lr
+    if isinstance(optimizer, SGD):
+        optimizer.write_lr()
 
 
 def get_lr(optimizer: torch.optim.Optimizer) -> float:

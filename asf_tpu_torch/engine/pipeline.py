@@ -13,12 +13,15 @@ T, F)`` for the GRU model, which flattens them again for its trunk.
 
 The pipeline runs under ``torch.no_grad()``: no gradient flows into the
 waveform in the JAX package, and the log-mel kernels have no backward. It
-is the span ``step.frontend``; the copy of the slow pathway's index to the
-card, which waits for the card, is ``wait.slow_index`` (``utils/spans.py``).
+is the span ``step.frontend`` (``utils/spans.py``). The slow pathway's
+index is kept on the device, one tensor per (frames, alpha, device), copied
+there on its first use and never again: a copy from the host's pageable
+memory would wait for the card on every step.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -28,6 +31,12 @@ from ..dsp.pathways import slow_indices
 from ..dsp.specaugment import spec_augment
 from ..parallel import dist
 from ..utils.spans import span
+
+
+@functools.lru_cache(maxsize=64)
+def slow_index(frames: int, alpha: int, device: torch.device) -> torch.Tensor:
+    """The slow pathway's frame indices (``dsp/pathways.py:slow_indices``) on ``device``."""
+    return torch.from_numpy(slow_indices(frames, alpha)).to(device)
 
 
 def pack_pathways(cfg, spec: torch.Tensor) -> list[torch.Tensor]:
@@ -42,9 +51,7 @@ def pack_pathways(cfg, spec: torch.Tensor) -> list[torch.Tensor]:
         raise NotImplementedError(
             f"Model arch {arch} is not in "
             f"{list(cfg.MODEL.SINGLE_PATHWAY_ARCH) + list(cfg.MODEL.MULTI_PATHWAY_ARCH)}")
-    idx = torch.from_numpy(slow_indices(spec.shape[1], cfg.SLOWFAST.ALPHA))
-    with span("wait.slow_index"):  # a blocking copy: on the card the host waits for it
-        idx = idx.to(spec.device)
+    idx = slow_index(spec.shape[1], int(cfg.SLOWFAST.ALPHA), spec.device)
     return [x.unsqueeze(1) for x in (spec.index_select(1, idx), spec)]
 
 

@@ -22,16 +22,18 @@ train loop reads it at its flush. ``train(cfg)`` builds it so only while a
 W&B run is live (the JAX step computes it whenever ``WANDB.ENABLE`` and
 drops it without a run).
 
-One step is: the input pipeline with SpecAugment, the train-mode forward
-(BN running statistics update here), the loss, ``backward``, the LR written
-into the optimizer, the optimizer step, then ``grad_norm`` and
+One step is: the input pipeline with SpecAugment, the LR written into the
+optimizer, the train-mode forward (BN running statistics update here), the
+loss, ``backward``, the optimizer step, then ``grad_norm`` and
 ``param_norm`` (over every parameter, BN's included, the latter after the
 update) and ``state.step + 1``; the spans ``step.frontend`` (the pipeline),
 ``step.forward`` (forward and loss), ``step.backward`` (``zero_grad`` and
-``backward``), ``step.update`` (the LR and the optimizer step) and
-``step.stats`` (metrics, rank reduction, norms, watch) cover it
-(``utils/spans.py``); an eval step is ``step.frontend`` and
-``step.forward``. Where the JAX step takes the state and
+``backward``), ``step.update`` (the optimizer step) and ``step.stats``
+(metrics, rank reduction, norms, watch) cover it (``utils/spans.py``); an
+eval step is ``step.frontend`` and ``step.forward``. Where a CUDA graph runs
+the work after the front end (``engine/graphs.py``), ``step.replay`` takes
+the place of the four spans after ``step.frontend`` (and of the eval step's
+``step.forward``). Where the JAX step takes the state and
 returns a new one (donating the old), this step updates ``state.model``,
 ``state.optimizer`` and ``state.step`` in place and returns ``(parts,
 stats)``: loss parts and top-k statistics as 0-d tensors on the device, so
@@ -66,6 +68,7 @@ from torch import nn
 from ..models import losses as losses_mod
 from ..parallel import dist, tensor
 from ..utils.spans import span
+from . import graphs
 from . import metrics as metrics_mod
 from .optimizer import construct_optimizer, set_lr
 from .pipeline import make_input_pipeline
@@ -292,6 +295,12 @@ def make_train_step(cfg, device, watch: bool = False):
     ``LOG_PERIOD`` adds ``parts["watch"] = (names, counts, ranges)``:
     ``watch_summary`` of every parameter after the update
     (``parameters/<path>``) and every gradient (``gradients/<path>``).
+
+    Where ``graphs.engages`` (a single-clip batch on the card, one process,
+    SGD), the work after the front end, from the forward to the norms, runs
+    as a CUDA graph of the batch's signature (``engine/graphs.py``): the LR
+    reaches it through the optimizer's LR tensors (``set_lr``), and the
+    watch summary is computed eagerly after the replay.
     """
     pipeline = make_input_pipeline(cfg, device)
     forward = apply_model(cfg)
@@ -299,14 +308,11 @@ def make_train_step(cfg, device, watch: bool = False):
     device_metrics = make_device_metrics(cfg)
     watch_period = max(1, int(cfg.LOG_PERIOD))
     data_group, shard = dist.data_group(cfg), tensor.model_shard(cfg)
+    step_graphs = graphs.StepGraphs()
 
-    def train_step(state: TrainState, batch: dict, lr: float):
-        model, optimizer = state.model, state.optimizer
-        net = model if state.ddp is None else state.ddp
-        # train() walks every module on the host: before the front end, whose
-        # slow index waits for the card, so that the walk overlaps the card's work
-        net.train()
-        paths = pipeline(batch["waveform"], batch["n_valid"], state.generator, train=True)
+    def core(model, net, optimizer, paths, batch):
+        """The step after the front end, eager or captured: forward, loss,
+        backward, update and statistics."""
         with span("step.forward"):
             preds = forward(net, paths, batch)
             loss, parts = loss_fn(preds, batch["labels"], batch.get("lengths"))
@@ -314,7 +320,6 @@ def make_train_step(cfg, device, watch: bool = False):
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
         with span("step.update"):
-            set_lr(optimizer, lr)
             optimizer.step()
         with span("step.stats"), torch.no_grad():
             params = [p for p in model.parameters() if p.grad is not None]
@@ -329,7 +334,26 @@ def make_train_step(cfg, device, watch: bool = False):
                                                     map(tensor.is_sharded, params), shard)
             parts["param_norm"] = tensor.global_norm(everything,
                                                      map(tensor.is_sharded, everything), shard)
-            if watch and state.step % watch_period == 0:
+        return parts, stats
+
+    def train_step(state: TrainState, batch: dict, lr: float):
+        model, optimizer = state.model, state.optimizer
+        net = model if state.ddp is None else state.ddp
+        # train() walks every module on the host: before the front end, so
+        # that the walk overlaps the card's work
+        net.train()
+        paths = pipeline(batch["waveform"], batch["n_valid"], state.generator, train=True)
+        set_lr(optimizer, lr)
+        rest = functools.partial(core, model, net, optimizer)
+        if graphs.engages(paths[0].device, batch, optimizer):
+            owner = (model, optimizer, optimizer.state, optimizer.param_groups)
+            batch = graphs.after_frontend(batch)
+            parts, stats = step_graphs.run(owner, graphs.signature(paths, batch, True), rest,
+                                           paths, batch, model.parameters())
+        else:
+            parts, stats = rest(paths, batch)
+        if watch and state.step % watch_period == 0:
+            with span("step.stats"):
                 named = list(model.named_parameters())
                 graded = [(n, p) for n, p in named if p.grad is not None]
                 names = ([f"parameters/{watch_name(n, p.dim())}" for n, p in named]
@@ -348,15 +372,26 @@ def make_train_step(cfg, device, watch: bool = False):
 def make_eval_step(cfg, device):
     """``eval_step(model, batch) -> probabilities``: the input pipeline
     without augmentation, then the model in eval mode (softmax, then the
-    mean over positions), under ``torch.inference_mode()``."""
+    mean over positions), under ``torch.inference_mode()``; where
+    ``graphs.engages``, the forward runs as a CUDA graph of the batch's
+    signature and the probabilities come back cloned."""
     pipeline = make_input_pipeline(cfg, device)
     forward = apply_model(cfg)
+    step_graphs = graphs.StepGraphs()
 
     @torch.inference_mode()
     def eval_step(model: nn.Module, batch: dict):
         model.eval()  # before the front end, as in train_step
         paths = pipeline(batch["waveform"], batch["n_valid"], train=False)
-        with span("step.forward"):
-            return forward(model, paths, batch)
+
+        def rest(paths, batch):
+            with span("step.forward"):
+                return forward(model, paths, batch)
+
+        if graphs.engages(paths[0].device, batch):
+            batch = graphs.after_frontend(batch, graphs.EVAL_READS)
+            return step_graphs.run((model,), graphs.signature(paths, batch, False), rest,
+                                   paths, batch)
+        return rest(paths, batch)
 
     return eval_step
